@@ -6,12 +6,13 @@ one CUDA device and ``nvcc`` (``$CUDA_HOME`` or ``/usr/local/cuda``), and
 exits non-zero without printing a result when either is missing or any
 phase fails. Phases:
 
-1. build the bid kernels from ``kube_batch_tpu_torch/solver/csrc`` and
-   report the card (``nvidia-smi`` name and power limit);
+1. build the bid kernels from ``kube_batch_tpu_torch/solver/csrc``,
+   report each kernel's registers and spills from ``ptxas -v`` (a spill
+   fails the run) and the card (``nvidia-smi`` name and power limit);
 2. hold each kernel against its plain PyTorch version on the card, on
-   seeded edge cases and on the round-0 inputs of phases 3-5 (bid and
-   any_feas exactly equal), and the scan/segment-sum glue against the
-   CPU;
+   the seeded ``EDGE_CASES`` and on the round-0 inputs of phases 3-5
+   (bid and any_feas exactly equal), and the scan/segment-sum glue
+   against the CPU;
 3. main path, sparse: a 50,000-pod x 5,000-node snapshot shaped like
    ``bench.py::build_cluster`` (5 weighted queues, 500 gangs, K=64 slabs
    from the port's host selection) through ``solve_auto`` with the
@@ -21,8 +22,14 @@ phase fails. Phases:
    class dedup degenerates) through ``solve_auto``; validated;
 5. dense full ``solve``: 10,000 x 1,000 (no slabs below 1,024 nodes),
    bit-equal to the CPU;
-6. timings: warm medians per phase, kernel and plain-version times at
-   the main path's shapes, each kernel's bound.
+6. timings: warm medians per phase, a profiled solve per phase, each
+   kernel's device time per launch (torch.profiler) and time per wrapper
+   call (CUDA events) at the main path's shapes, the plain versions'
+   times, each kernel's bound.
+
+``--baseline BID_CU`` also builds another version of ``bid.cu`` (an
+earlier PR's, say), times it against the current kernels in turns at the
+round-0 inputs and profiles the three solves with it.
 
 Each phase sets the kernels' launch counters to 0 just before it drives
 the path and reads them just after. The next-to-last line of standard
@@ -32,7 +39,10 @@ Details go to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import argparse
+import ctypes
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -274,6 +284,29 @@ def event_ms(fn, reps, warm=2):
     return t0.elapsed_time(t1) / reps
 
 
+def device_ms(fn, kernel, reps=20, warm=2):
+    """Mean device time of one launch of `kernel` (a substring of its
+    name) over `reps` calls of `fn`, from torch.profiler: the kernel
+    alone, without the host time of the call that launches it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and kernel in e.key]
+    count = sum(e.count for e in hits)
+    # The profiler may drop some of many short events; the mean is over
+    # the launches it kept.
+    check(count > 0, f"{kernel}: the profiler saw no launch")
+    return sum(e.self_device_time_total for e in hits) / count / 1e3
+
+
 def wall_ms(fn, reps):
     times = []
     for _ in range(reps):
@@ -306,36 +339,100 @@ def compare_kernel(name, args, record):
           f"{mism} any_feas mismatches, T={args[0].shape[0]})")
 
 
+# (seed, T, N, R, K, static rows, (lr_w, br_w), variant). The kernels
+# take rows in groups of 16 (dense) or 32 (sparse) over a grid of one or
+# a few blocks per SM, and hold node tables of up to 7,808 columns at
+# R=2 (4,464 at R=8) in shared memory; the sizes below cross those.
+EDGE_CASES = [
+    (1, 1001, 333, 3, 64, True, (0.7, 1.3), None),
+    (2, 100, 4097, 2, 64, False, (1.0, 1.0), None),
+    (3, 33, 64, 2, 64, True, (1.0, 1.0), None),
+    # several dense tiles; the sparse table exceeds shared memory
+    (4, 300, 20000, 8, 64, True, (1.0, 1.0), None),
+    # N not a multiple of 16, T not a multiple of the grid, K = 37
+    (5, 2117, 1009, 2, 37, False, (0.7, 1.3), None),
+    # identical nodes: max-key ties across 16-column groups and tiles
+    (6, 700, 9000, 2, 64, False, (1.0, 1.0), "identical"),
+    (7, 500, 4097, 2, 64, True, (1.0, 1.0), "identical"),
+    (8, 800, 2000, 3, 48, False, (1.0, 1.0), "zero_cap"),
+    (9, 600, 1500, 2, 64, True, (0.7, 1.3), "extreme"),
+    (10, 640, 777, 2, 64, False, (1.0, 1.0), "odd_rows"),
+    (11, 257, 500, 2, 64, True, (1.0, 1.0), "shifted"),
+]
+
+
+def _shifted(a, by, dev):
+    """A contiguous copy of `a` whose storage starts `by` elements into a
+    buffer: rows lose their 16-byte alignment."""
+    flat = torch.zeros(a.size + by, dtype=torch.from_numpy(a[:0]).dtype,
+                       device=dev)
+    out = flat[by:].view(a.shape)
+    out.copy_(torch.from_numpy(np.ascontiguousarray(a)))
+    return out
+
+
+def edge_case(dev, seed, T, N, R, K, static, weights, variant):
+    """Kernel arguments (dense, sparse) for one seeded case. Variants:
+    ``identical`` nodes (ties everywhere); ``zero_cap``: zero or negative
+    capacity in one dimension on a fifth of the nodes; ``extreme``:
+    capacities 2^-120..2^120 with idle up to twice the capacity and
+    requests 2^-100..2^100 (outside the kernels' reciprocal route);
+    ``odd_rows``: requests of 0 and 2^-60, and a run of rows with
+    task_ok false; ``shifted``: inputs whose rows are not 16-byte
+    aligned."""
+    rng = np.random.RandomState(seed)
+    req = rng.uniform(100, 3000, (T, R)).astype(np.float32)
+    idle = rng.uniform(500, 32000, (N, R)).astype(np.float32)
+    cap = idle * rng.uniform(1.0, 1.5, (N, 1)).astype(np.float32)
+    eps = np.full(R, 10, np.float32)
+    task_ok = rng.rand(T) > 0.1
+    cap_ok = rng.rand(N) > 0.1
+    cap_ok[: N // 10] = False
+    if variant == "identical":
+        idle[:] = idle[0]
+        cap[:] = cap[0]
+        cap_ok[:] = True
+    elif variant == "zero_cap":
+        cap[rng.rand(N) < 0.2, 0] = 0.0
+        cap[rng.rand(N) < 0.2, 1] = 0.0
+        cap[rng.rand(N) < 0.05, 0] = -5.0
+    elif variant == "extreme":
+        scale = np.exp2(rng.uniform(-120, 120, (N, R)))
+        cap = (scale * rng.uniform(1.0, 1.5, (N, R))).astype(np.float32)
+        idle = (cap * rng.uniform(0.5, 2.0, (N, R))).astype(np.float32)
+        req = (np.exp2(rng.uniform(-100, 100, (T, R)))
+               * rng.uniform(1.0, 2.0, (T, R))).astype(np.float32)
+        eps[:] = np.float32(2.0 ** 126)
+    elif variant == "odd_rows":
+        req[rng.rand(T) < 0.1, 0] = 0.0
+        req[rng.rand(T) < 0.1, 1] = np.float32(2.0 ** -60)
+        task_ok[T // 4: T // 2] = False
+    fit = req * np.float32(1.05)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
+    shift = (lambda a, by: _shifted(a, by, dev)) if variant == "shifted" \
+        else (lambda a, by: t(a))
+    base = [t(fit), t(req), t(task_ok)]
+    nodes = [t(idle), t(cap), t(cap_ok), t(eps), *weights,
+             t(np.arange(T, dtype=np.int32))]
+    feas = shift(rng.rand(T, N) > 0.2, 3)
+    st = (shift(rng.uniform(0, 10, (T, N)).astype(np.float32), 1)
+          if static else None)
+    cand = np.sort(np.argsort(rng.rand(T, N), 1)[:, :K], 1).astype(np.int32)
+    cand[rng.rand(T, K) < 0.15] = N
+    cand.sort(1)
+    cand[0] = N  # an all-padding row
+    sparse = base + [
+        shift(cand, 1), shift(rng.uniform(0, 5, (T, K)).astype(np.float32), 1),
+    ] + nodes
+    return base + [feas] + nodes + [st], sparse
+
+
 def edge_cases(dev):
-    """Seeded cases: unaligned T, static rows, R=3, padding rows, an
-    all-infeasible column, weights other than 1."""
+    """Every EDGE_CASES entry as (kernel name, arguments)."""
     out = []
-    for seed, T, N, R, static, w in [
-        (1, 1001, 333, 3, True, (0.7, 1.3)),
-        (2, 100, 4097, 2, False, (1.0, 1.0)),
-        (3, 33, 64, 2, True, (1.0, 1.0)),
-    ]:
-        rng = np.random.RandomState(seed)
-        fit = rng.uniform(100, 3000, (T, R)).astype(np.float32)
-        idle = rng.uniform(500, 32000, (N, R)).astype(np.float32)
-        cap = idle * rng.uniform(1.0, 1.5, (N, 1)).astype(np.float32)
-        cap_ok = rng.rand(N) > 0.1
-        cap_ok[: N // 10] = False
-        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa
-        base = [t(fit * 1.05), t(fit), t(rng.rand(T) > 0.1)]
-        nodes = [t(idle), t(cap), t(cap_ok), t(np.full(R, 10, np.float32)),
-                 *w, t(np.arange(T, dtype=np.int32))]
-        feas = t(rng.rand(T, N) > 0.2)
-        st = t(rng.uniform(0, 10, (T, N)).astype(np.float32)) if static else None
-        out.append(("bid_dense", base + [feas] + nodes + [st]))
-        Kw = 64
-        cand = np.sort(np.argsort(rng.rand(T, N), 1)[:, :Kw], 1).astype(np.int32)
-        cand[rng.rand(T, Kw) < 0.15] = N
-        cand.sort(1)
-        cand[0] = N  # an all-padding row
-        out.append(("bid_sparse", base + [
-            t(cand), t(rng.uniform(0, 5, (T, Kw)).astype(np.float32)),
-        ] + nodes))
+    for case in EDGE_CASES:
+        dense, sparse = edge_case(dev, *case)
+        out += [("bid_dense", dense), ("bid_sparse", sparse)]
     return out
 
 
@@ -426,7 +523,148 @@ def validated(host, res, T, N, what):
     check(bad.size == 0, f"{what}: validation rejected {reasons}")
 
 
+def ptxas_report(log_text):
+    """Registers, shared memory and spill bytes per kernel instance from
+    nvcc's ``-Xptxas -v`` report."""
+    out, name = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            mangled = m.group(1)
+            base = re.search(r"\d(bid_(?:dense|sparse)_kernel)", mangled)
+            targs = re.search(r"_kernelILi(\d+)ELb([01])E", mangled)
+            name = base.group(1) if base else mangled
+            if targs:
+                r = "any" if targs.group(1) == "0" else targs.group(1)
+                flag = "true" if targs.group(2) == "1" else "false"
+                name += f"<R={r}, {flag}>"
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            out[name]["static_smem_bytes"] = int(sm.group(1)) if sm else 0
+    return out
+
+
+def sass_dense_loop(lib_path):
+    """For each R=2 instance of bid_dense_kernel in the built library
+    (``cuobjdump -sass``): the instructions of its 16-column group loop
+    (the smallest loop that holds a 16-byte load), per cell, and how
+    many of them are MUFU (the unit IEEE division would use)."""
+    cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
+    if not cuobjdump.is_file():
+        return "not measured: no cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
+                          capture_output=True, text=True).stdout
+    out = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split()[0]
+        targs = re.search(r"16bid_dense_kernelILi2ELb([01])E", name)
+        if not targs:
+            continue
+        ins = [(int(a, 16), op.strip()) for a, op in
+               re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]+);", part)]
+        loops = []
+        for i, (addr, op) in enumerate(ins):
+            m = re.search(r"\bBRA\s+(?:\S+,\s*)?0x([0-9a-f]+)", op)
+            if m and int(m.group(1), 16) < addr:
+                body = [o for a, o in ins
+                        if int(m.group(1), 16) <= a <= addr]
+                if any("LDG.E.128" in o for o in body):
+                    loops.append(body)
+        if not loops:
+            continue
+        body = min(loops, key=len)
+        static = "true" if targs.group(1) == "1" else "false"
+        out[f"bid_dense_kernel<R=2, {static}>"] = {
+            "loop_instructions": len(body),
+            "per_cell": len(body) / 16,
+            "mufu_in_loop": sum("MUFU" in o for o in body),
+        }
+    return out
+
+
+def load_baseline(source):
+    """Build another bid.cu (an earlier version of the kernels) with the
+    same flags into the output directory and load it."""
+    out_dir = OUT_DIR / "baseline"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lib_path = out_dir / "libkbt_bid_baseline.so"
+    cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib_path),
+           str(source)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    check(proc.returncode == 0, f"baseline build failed: {proc.stderr}")
+    (out_dir / "ptxas.log").write_text(proc.stdout + proc.stderr)
+    return _build.declare(ctypes.CDLL(str(lib_path)))
+
+
+def time_against_baseline(source, r0, packed):
+    """The current kernels and those of `source` at the round-0 inputs,
+    timed in turns (baseline, current, current, baseline; device time per
+    launch) after checking that both give the same bids; then one
+    profiled warm solve per cell with the baseline's kernels."""
+    libs = {"baseline": load_baseline(source),
+            "current": _build.load_library()}
+
+    def use(which):  # the wrappers launch `which` library's kernels
+        _build._loaded["lib"] = libs[which]
+
+    out = {"source": str(source)}
+    try:
+        for name in ("bid_dense", "bid_sparse"):
+            args = r0[name]
+            fn = getattr(BK, name)
+            saved = fn.launches
+            use("baseline")
+            base = fn(*args)
+            use("current")
+            got = fn(*args)
+            check(torch.equal(got[0], base[0])
+                  and torch.equal(got[1], base[1]),
+                  f"{name}: the baseline's bids differ from the current ones")
+            turns = []
+            for which in ("baseline", "current", "current", "baseline"):
+                use(which)
+                turns.append((which, device_ms(lambda: fn(*args),
+                                               name + "_kernel")))
+            fn.launches = saved
+            out[name] = {"device_ms_turns": turns}
+            log(f"phase 6: {name} against the baseline (device ms): "
+                + ", ".join(f"{w} {ms:.4f}" for w, ms in turns))
+        use("baseline")
+        out["profiles"], out["warm_ms"] = {}, {}
+        for name, key in (("sparse_50k_5k", "sparse"),
+                          ("staged_50k_5k", "staged"),
+                          ("full_10k_1k", "full")):
+            out["warm_ms"][name] = wall_ms(
+                lambda p=packed[key]: K.solve_auto(p, use_kernel=True), 3)
+            out["profiles"][name] = profile_solve(packed[key])
+    finally:
+        use("current")
+    for name, prof in out["profiles"].items():
+        log(f"phase 6: {name} with the baseline's kernels: warm "
+            f"{out['warm_ms'][name]:.1f} ms; profiled {prof['wall_ms']:.1f} "
+            f"ms wall, kernel launches {prof.get('kernel_launches')}, bid "
+            f"kernels {prof.get('bid_kernels_ms')} ms")
+    return out
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument(
+        "--baseline", metavar="BID_CU",
+        help="another version of csrc/bid.cu to build and time beside "
+             "the current kernels at the round-0 inputs (in turns: "
+             "baseline, current, current, baseline)")
+    opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -441,7 +679,13 @@ def main() -> int:
     t0 = time.perf_counter()
     build = _build.build()
     report["build"] = {k: build[k] for k in ("path", "built", "seconds")}
-    (OUT_DIR / "ptxas.log").write_text(build["log"])
+    ptxas = build["log"] or (Path(build["path"]).parent
+                             / "nvcc.log").read_text()
+    (OUT_DIR / "ptxas.log").write_text(ptxas)
+    report["ptxas"] = ptxas_report(ptxas)
+    check(report["ptxas"], "no kernel in the ptxas report")
+    spills = {k: v for k, v in report["ptxas"].items() if v["spill_bytes"]}
+    check(not spills, f"ptxas reports spills: {spills}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -452,6 +696,11 @@ def main() -> int:
         f"({'compiled' if build['built'] else 'cached'}, "
         f"{build['seconds']:.1f} s)")
     log(smi)
+    for kname, info in report["ptxas"].items():
+        log(f"phase 1: {kname}: {info['registers']} registers, "
+            f"{info['spill_bytes']} bytes spilled")
+    report["sass"] = sass_dense_loop(build["path"])
+    log(f"phase 1: dense group loop (SASS): {report['sass']}")
 
     # -- snapshots -----------------------------------------------------------
     check(topk_config(50_000, 5_000).enabled, "topk policy off at 50k x 5k")
@@ -542,13 +791,15 @@ def main() -> int:
         args = r0[name]
         fn, plain = getattr(BK, name), getattr(BK, name + "_plain")
         saved = fn.launches
-        ms = event_ms(lambda: fn(*args), reps=20)
+        ms = device_ms(lambda: fn(*args), name + "_kernel")
+        call_ms = event_ms(lambda: fn(*args), reps=20)
         fn.launches = saved
         plain_ms = event_ms(lambda: plain(*args), reps=3, warm=1)
         nbytes, ops = works[name]
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / FP32_FLOP_PER_S * 1e3
-        kern[name].update(ms=ms, plain_ms=plain_ms, bytes=nbytes, ops=ops)
+        kern[name].update(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                          bytes=nbytes, ops=ops)
         records.append({
             "name": name, "route": "cuda", "source": SOURCE,
             "replaces": REPLACES[name],
@@ -560,6 +811,8 @@ def main() -> int:
             # No single PyTorch call computes either bid function.
             "library_ms": None,
         })
+    if opts.baseline:
+        report["baseline"] = time_against_baseline(opts.baseline, r0, packed)
     report.update(phases=phases, kernels=kern, records=records,
                   seconds=time.perf_counter() - t0)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
@@ -571,7 +824,8 @@ def main() -> int:
             f"device busy {prof['device_busy_ms']} ms, idle share "
             f"{prof.get('idle_share', 'not measured')}")
     for rec in records:
-        log(f"phase 6: {rec['name']}: {rec['ms']:.3f} ms (plain "
+        log(f"phase 6: {rec['name']}: {rec['ms']:.4f} ms on the device, "
+            f"{kern[rec['name']]['call_ms']:.4f} ms a wrapper call (plain "
             f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.3f} ms by "
             f"{rec['bound_by']}), {rec['launches']} launches; no PyTorch "
             f"call computes it, so library_ms is null")

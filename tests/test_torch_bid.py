@@ -6,7 +6,12 @@ bit-equal to ``pallas_bid`` / ``pallas_bid_sparse`` in interpret mode
 and to the jnp chain (``bid_keys`` then argmax), on the cases of
 tests/solver/test_pallas.py: aligned and unaligned T, static rows, an
 all-infeasible column, an all-padding slab row, R = 2 and R = 3, and
-LeastRequested/Balanced weights of 1 and otherwise.
+LeastRequested/Balanced weights of 1 and otherwise; and on the cases the
+Hopper kernels' design turns on (``EDGE``): identical nodes (ties
+everywhere), R = 8, a zero-capacity dimension, capacities from 2^-120 to
+2^120, K = 37. The last tests hold the two arithmetic identities the
+kernels rest on (the reciprocal route for division, the key's rounding)
+against IEEE float32.
 """
 
 import jax.numpy as jnp
@@ -45,7 +50,12 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _case(seed, T, N, R, lr_w, br_w, K=None, static=False):
+def _case(seed, T, N, R, lr_w, br_w, K=None, static=False, variant=None):
+    """Seeded bid inputs; ``variant`` reshapes the nodes (and requests)
+    after the common draws: ``identical`` nodes, ``zero_cap`` (zero or
+    negative capacity in one dimension on some nodes), ``extreme``
+    (capacities 2^-120..2^120, idle up to twice the capacity, requests
+    2^-100..2^100, an epsilon that lets every task fit)."""
     rng = np.random.RandomState(seed)
     task_req = rng.uniform(100, 3000, (T, R)).astype(np.float32)
     task_fit = task_req * rng.uniform(1.0, 1.2, (T, 1)).astype(np.float32)
@@ -70,7 +80,57 @@ def _case(seed, T, N, R, lr_w, br_w, K=None, static=False):
         cand.sort(axis=1)                  # ascending, sentinels last
         case["cand_nodes"] = cand
         case["cand_static"] = rng2.uniform(0, 5, (T, K)).astype(np.float32)
+    rng3 = np.random.RandomState(seed + 2000)
+    idle, cap = case["idle"], case["cap"]
+    if variant == "identical":
+        idle[:] = idle[0]
+        cap[:] = cap[0]
+        case["cap_ok"][:] = True
+    elif variant == "zero_cap":
+        cap[rng3.rand(N) < 0.2, 0] = 0.0
+        cap[rng3.rand(N) < 0.2, 1] = 0.0
+        cap[rng3.rand(N) < 0.05, 0] = -5.0
+    elif variant == "extreme":
+        cap = (np.exp2(rng3.uniform(-120, 120, (N, R)))
+               * rng3.uniform(1.0, 1.5, (N, R))).astype(np.float32)
+        case["cap"] = cap
+        case["idle"] = (cap * rng3.uniform(0.5, 2.0, (N, R))).astype(
+            np.float32)
+        req = (np.exp2(rng3.uniform(-100, 100, (T, R)))
+               * rng3.uniform(1.0, 2.0, (T, R))).astype(np.float32)
+        case["task_req"] = req
+        case["task_fit"] = req * rng3.uniform(1.0, 1.2, (T, 1)).astype(
+            np.float32)
+        case["eps"][:] = np.float32(2.0 ** 126)
     return case
+
+
+# Cases the Hopper kernels' design turns on, at CPU size:
+# (T, N, R, K, static, variant); dense cases ignore K.
+EDGE_DENSE = [
+    (TILE_T + 1, 4097, 2, None, False, "identical"),
+    (2 * TILE_T, 256, 8, None, True, None),
+    (TILE_T, 300, 3, None, False, "zero_cap"),
+    (TILE_T, 200, 2, None, True, "extreme"),
+]
+EDGE_SPARSE = [
+    (TILE_T + 5, 256, 2, 37, None, None),
+    (2 * TILE_T, 4097, 2, 64, None, "identical"),
+    (TILE_T, 300, 8, 16, None, None),
+    (TILE_T, 300, 3, 32, None, "zero_cap"),
+    (TILE_T, 200, 2, 64, None, "extreme"),
+]
+
+
+def _edge_id(c):
+    T, N, R, K, static, variant = c
+    return f"{variant or 'plain'}-T{T}-N{N}-R{R}" + (f"-K{K}" if K else "")
+
+
+def _edge_case(c, weights):
+    T, N, R, K, static, variant = c
+    return _case(T + N + R, T, N, R, *weights, K=K, static=bool(static),
+                 variant=variant)
 
 
 def _j(case, *names):
@@ -194,6 +254,22 @@ def test_bid_sparse_bit_equal(T, N, K, R, weights):
     assert_bits(port_sparse(case), pallas, chain)
 
 
+@pytest.mark.parametrize("weights", WEIGHTS, ids=["w1", "w07_13"])
+@pytest.mark.parametrize("c", EDGE_DENSE, ids=_edge_id)
+def test_bid_dense_bit_equal_edge(c, weights):
+    case = _edge_case(c, weights)
+    pallas, chain = jax_dense(case)
+    assert_bits(port_dense(case), pallas, chain)
+
+
+@pytest.mark.parametrize("weights", WEIGHTS, ids=["w1", "w07_13"])
+@pytest.mark.parametrize("c", EDGE_SPARSE, ids=_edge_id)
+def test_bid_sparse_bit_equal_edge(c, weights):
+    case = _edge_case(c, weights)
+    pallas, chain = jax_sparse(case)
+    assert_bits(port_sparse(case), pallas, chain)
+
+
 def test_bid_sparse_all_padded_row():
     case = _case(5, TILE_T, 128, 3, 1.0, 1.0, K=8)
     case["cand_nodes"][0] = 128
@@ -237,15 +313,74 @@ def test_wrapper_rejects_bad_input_before_launch():
     assert BK.bid_dense.launches == 0
 
 
+def _floats(rng, n, elo, ehi, mode):
+    """float32 values 2^e * significand, e in [elo, ehi]; the significand
+    random, near 2 (``hi``) or near 1 (``lo``)."""
+    if mode == "rand":
+        m = rng.randint(0, 1 << 23, n)
+    elif mode == "hi":
+        m = (1 << 23) - 1 - rng.randint(0, 1 << 12, n)
+    else:
+        m = rng.randint(0, 1 << 12, n)
+    e = rng.randint(elo, ehi + 1, n)
+    return (((e + 127) << 23) | m).astype(np.int32).view(np.float32)
+
+
+@pytest.mark.parametrize("s_mode", ["rand", "hi", "lo"])
+@pytest.mark.parametrize("a_mode", ["rand", "hi", "lo"])
+def test_reciprocal_route_equals_ieee_division(a_mode, s_mode):
+    """The kernels' division without MUFU: q0 = a*rcp, r = fma(-s, q0, a),
+    q = fma(r, rcp, q0) with rcp = RN(1/s) is RN(a / s) for numerators
+    of magnitude 2^-63..2^65 and divisors 2^-40..2^60 (the route's range,
+    csrc/bid.cu), including the significands where RN(1/s) and a*rcp
+    are least accurate."""
+    from kube_batch_tpu_torch.solver.kernels import _fma_f32
+
+    rng = np.random.RandomState(["rand", "hi", "lo"].index(a_mode) * 3
+                                + ["rand", "hi", "lo"].index(s_mode))
+    n = 1 << 17
+    a = _floats(rng, n, -63, 64, a_mode)
+    a[rng.rand(n) < 0.5] *= -1
+    s = _floats(rng, n, -40, 59, s_mode)
+    at, st = torch.from_numpy(a), torch.from_numpy(s)
+    rcp = 1.0 / st
+    q0 = at * rcp
+    q = _fma_f32(_fma_f32(-st, q0, at), rcp, q0)
+    assert np.array_equal(q.numpy().view(np.int32), (a / s).view(np.int32))
+
+
+def test_key_rounding_by_magic_add():
+    """The kernels' key score, rint(clip(score*50, -2^19, 2^19-1)) + 2^19
+    read from the bits of u + 1.5*2^23, equals clip(rint(score*50) +
+    2^19, 0, 2^20-1) with fmaxf/fminf's NaN rule, for every class of
+    float32: a stride through all bit patterns (NaN and infinities
+    included) and the half-way points of the quantum."""
+    bits = np.arange(0, 1 << 32, 4099, dtype=np.uint64).astype(np.uint32)
+    half = (np.arange(-600_000, 600_000, dtype=np.float32)
+            + np.float32(0.5))
+    t = np.concatenate([bits.view(np.float32), half,
+                        np.float32([0.0, -0.0, np.inf, -np.inf, np.nan])])
+    with np.errstate(all="ignore"):
+        want = np.fmin(np.fmax(np.rint(t) + np.float32(2 ** 19),
+                               np.float32(0)), np.float32(2 ** 20 - 1))
+        u = np.fmin(np.fmax(t, np.float32(-2 ** 19)),
+                    np.float32(2 ** 19 - 1))
+        v = (u + np.float32(12582912.0)).astype(np.float32)
+    got = v.view(np.uint32) - np.uint32(0x4B380000)
+    assert np.array_equal(got, want.astype(np.uint32))
+
+
 @pytest.mark.gpu
 def test_kernels_match_plain_on_card(cuda_device):
     """The Hopper kernels against their plain versions on the card
     (skipped without CUDA; chip_smoke.py runs the same comparison at
     the main path's shapes)."""
-    for case, run in (
-        (_case(7, 1001, 333, 3, 0.7, 1.3, static=True), port_dense),
-        (_case(8, 1000, 300, 2, 1.0, 1.0, K=64), port_sparse),
-    ):
+    cases = [(_case(7, 1001, 333, 3, 0.7, 1.3, static=True), port_dense),
+             (_case(8, 1000, 300, 2, 1.0, 1.0, K=64), port_sparse)]
+    for weights in WEIGHTS:
+        cases += [(_edge_case(c, weights), port_dense) for c in EDGE_DENSE]
+        cases += [(_edge_case(c, weights), port_sparse) for c in EDGE_SPARSE]
+    for case, run in cases:
         dev = {k: (torch.from_numpy(np.asarray(v)).to(cuda_device)
                    if v is not None and np.ndim(v) else v)
                for k, v in case.items()}
