@@ -22,14 +22,11 @@ phase fails. Phases:
    class dedup degenerates) through ``solve_auto``; validated;
 5. dense full ``solve``: 10,000 x 1,000 (no slabs below 1,024 nodes),
    bit-equal to the CPU;
-6. timings: warm medians per phase, a profiled solve per phase, each
-   kernel's device time per launch (torch.profiler) and time per wrapper
-   call (CUDA events) at the main path's shapes, the plain versions'
-   times, each kernel's bound.
-
-``--baseline BID_CU`` also builds another version of ``bid.cu`` (an
-earlier PR's, say), times it against the current kernels in turns at the
-round-0 inputs and profiles the three solves with it.
+6. timings: warm medians per phase, a profiled solve per phase, and at
+   the main path's shapes each kernel's time per launch over 20
+   back-to-back wrapper calls (CUDA events: ``ms``), its device time per
+   launch with the L2 flushed before each (``device_ms``), the plain
+   versions' times and each kernel's bound.
 
 Each phase sets the kernels' launch counters to 0 just before it drives
 the path and reads them just after. The next-to-last line of standard
@@ -39,8 +36,6 @@ Details go to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
-import argparse
-import ctypes
 import json
 import re
 import statistics
@@ -284,27 +279,35 @@ def event_ms(fn, reps, warm=2):
     return t0.elapsed_time(t1) / reps
 
 
-def device_ms(fn, kernel, reps=20, warm=2):
-    """Mean device time of one launch of `kernel` (a substring of its
-    name) over `reps` calls of `fn`, from torch.profiler: the kernel
-    alone, without the host time of the call that launches it."""
-    from torch.profiler import ProfilerActivity, profile
+# Before each call that device_ms times, the L2 is flushed (this many
+# bytes overwritten: five times the H100's 50 MB L2) and the card spins
+# (this many cycles, ~0.5 ms), so the host has queued the call before the
+# card reaches it.
+L2_FLUSH_BYTES = 256 << 20
+SPIN_CYCLES = 1_000_000
 
+
+def device_ms(fn, reps=20, warm=2):
+    """Mean device time of one call of `fn` with a cold L2: each call
+    between its own pair of CUDA events, queued behind an L2 flush and a
+    spin of the card. The events then time the kernel alone, not the
+    host's call, reading its inputs from HBM as in the solve's round
+    loop, where ~1,800 other kernels run between two bid launches."""
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     for _ in range(warm):
         fn()
+    pairs = []
+    for _ in range(reps):
+        flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        pairs.append((t0, t1))
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and kernel in e.key]
-    count = sum(e.count for e in hits)
-    # The profiler may drop some of many short events; the mean is over
-    # the launches it kept.
-    check(count > 0, f"{kernel}: the profiler saw no launch")
-    return sum(e.self_device_time_total for e in hits) / count / 1e3
+    return statistics.fmean(t0.elapsed_time(t1) for t0, t1 in pairs)
 
 
 def wall_ms(fn, reps):
@@ -592,79 +595,7 @@ def sass_dense_loop(lib_path):
     return out
 
 
-def load_baseline(source):
-    """Build another bid.cu (an earlier version of the kernels) with the
-    same flags into the output directory and load it."""
-    out_dir = OUT_DIR / "baseline"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    lib_path = out_dir / "libkbt_bid_baseline.so"
-    cmd = [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib_path),
-           str(source)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    check(proc.returncode == 0, f"baseline build failed: {proc.stderr}")
-    (out_dir / "ptxas.log").write_text(proc.stdout + proc.stderr)
-    return _build.declare(ctypes.CDLL(str(lib_path)))
-
-
-def time_against_baseline(source, r0, packed):
-    """The current kernels and those of `source` at the round-0 inputs,
-    timed in turns (baseline, current, current, baseline; device time per
-    launch) after checking that both give the same bids; then one
-    profiled warm solve per cell with the baseline's kernels."""
-    libs = {"baseline": load_baseline(source),
-            "current": _build.load_library()}
-
-    def use(which):  # the wrappers launch `which` library's kernels
-        _build._loaded["lib"] = libs[which]
-
-    out = {"source": str(source)}
-    try:
-        for name in ("bid_dense", "bid_sparse"):
-            args = r0[name]
-            fn = getattr(BK, name)
-            saved = fn.launches
-            use("baseline")
-            base = fn(*args)
-            use("current")
-            got = fn(*args)
-            check(torch.equal(got[0], base[0])
-                  and torch.equal(got[1], base[1]),
-                  f"{name}: the baseline's bids differ from the current ones")
-            turns = []
-            for which in ("baseline", "current", "current", "baseline"):
-                use(which)
-                turns.append((which, device_ms(lambda: fn(*args),
-                                               name + "_kernel")))
-            fn.launches = saved
-            out[name] = {"device_ms_turns": turns}
-            log(f"phase 6: {name} against the baseline (device ms): "
-                + ", ".join(f"{w} {ms:.4f}" for w, ms in turns))
-        use("baseline")
-        out["profiles"], out["warm_ms"] = {}, {}
-        for name, key in (("sparse_50k_5k", "sparse"),
-                          ("staged_50k_5k", "staged"),
-                          ("full_10k_1k", "full")):
-            out["warm_ms"][name] = wall_ms(
-                lambda p=packed[key]: K.solve_auto(p, use_kernel=True), 3)
-            out["profiles"][name] = profile_solve(packed[key])
-    finally:
-        use("current")
-    for name, prof in out["profiles"].items():
-        log(f"phase 6: {name} with the baseline's kernels: warm "
-            f"{out['warm_ms'][name]:.1f} ms; profiled {prof['wall_ms']:.1f} "
-            f"ms wall, kernel launches {prof.get('kernel_launches')}, bid "
-            f"kernels {prof.get('bid_kernels_ms')} ms")
-    return out
-
-
 def main() -> int:
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument(
-        "--baseline", metavar="BID_CU",
-        help="another version of csrc/bid.cu to build and time beside "
-             "the current kernels at the round-0 inputs (in turns: "
-             "baseline, current, current, baseline)")
-    opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -791,14 +722,14 @@ def main() -> int:
         args = r0[name]
         fn, plain = getattr(BK, name), getattr(BK, name + "_plain")
         saved = fn.launches
-        ms = device_ms(lambda: fn(*args), name + "_kernel")
-        call_ms = event_ms(lambda: fn(*args), reps=20)
+        ms = event_ms(lambda: fn(*args), reps=20)
+        dev_ms = device_ms(lambda: fn(*args))
         fn.launches = saved
         plain_ms = event_ms(lambda: plain(*args), reps=3, warm=1)
         nbytes, ops = works[name]
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / FP32_FLOP_PER_S * 1e3
-        kern[name].update(ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+        kern[name].update(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                           bytes=nbytes, ops=ops)
         records.append({
             "name": name, "route": "cuda", "source": SOURCE,
@@ -810,9 +741,8 @@ def main() -> int:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             # No single PyTorch call computes either bid function.
             "library_ms": None,
+            "device_ms": dev_ms,
         })
-    if opts.baseline:
-        report["baseline"] = time_against_baseline(opts.baseline, r0, packed)
     report.update(phases=phases, kernels=kern, records=records,
                   seconds=time.perf_counter() - t0)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
@@ -824,8 +754,8 @@ def main() -> int:
             f"device busy {prof['device_busy_ms']} ms, idle share "
             f"{prof.get('idle_share', 'not measured')}")
     for rec in records:
-        log(f"phase 6: {rec['name']}: {rec['ms']:.4f} ms on the device, "
-            f"{kern[rec['name']]['call_ms']:.4f} ms a wrapper call (plain "
+        log(f"phase 6: {rec['name']}: {rec['ms']:.4f} ms a launch (events), "
+            f"{rec['device_ms']:.4f} ms on the device, L2 flushed (plain "
             f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.3f} ms by "
             f"{rec['bound_by']}), {rec['launches']} launches; no PyTorch "
             f"call computes it, so library_ms is null")

@@ -90,17 +90,11 @@ def load_library() -> ctypes.CDLL:
         if lib is not None:
             return lib
         build()
-        lib = declare(ctypes.CDLL(str(library_path())))
+        lib = ctypes.CDLL(str(library_path()))
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.kbt_bid_dense.argtypes = [p] * 12 + [i, i, i, f, f, p]
+        lib.kbt_bid_dense.restype = ctypes.c_int
+        lib.kbt_bid_sparse.argtypes = [p] * 12 + [i, i, i, i, f, f, p]
+        lib.kbt_bid_sparse.restype = ctypes.c_int
         _loaded["lib"] = lib
         return lib
-
-
-def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C signatures of ``kbt_bid_dense`` and
-    ``kbt_bid_sparse`` on a loaded library."""
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.kbt_bid_dense.argtypes = [p] * 12 + [i, i, i, f, f, p]
-    lib.kbt_bid_dense.restype = ctypes.c_int
-    lib.kbt_bid_sparse.argtypes = [p] * 12 + [i, i, i, i, f, f, p]
-    lib.kbt_bid_sparse.restype = ctypes.c_int
-    return lib

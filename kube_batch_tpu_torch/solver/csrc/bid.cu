@@ -48,15 +48,12 @@
 //   column by column. Each lane visits its columns in ascending order; a
 //   shuffle reduction takes (max key, lowest column).
 // - Sparse rows: a half-warp per row, 4 candidates per lane per int4/float4
-//   load, a scalar tail when K is not a multiple of 4 or the row is not
-//   aligned. On the main path (R=2, K <= 64, the table in shared memory) a
-//   lane holds one int4/float4 and the loop is staged: while a row is
-//   scored, the slab and operands of the block's next row are in flight and
-//   the gate (task_ok) of the row after. Ties keep the lowest global node id
-//   (Pallas's rule); ids outside [0, N) are padding and never dereferenced.
-//   When the table for all N nodes does not fit, the kernel gathers idle and
-//   cap from device memory per candidate instead (chosen by size in
-//   kbt_bid_sparse).
+//   load (at K = 64 one load a lane), a scalar tail when K is not a
+//   multiple of 4 or the row is not aligned. Ties keep the lowest global
+//   node id (Pallas's rule); ids outside [0, N) are padding and never
+//   dereferenced. When the table for all N nodes does not fit, the kernel
+//   gathers idle and cap from device memory per candidate instead (chosen
+//   by size in kbt_bid_sparse).
 //
 // Numerics: the keys must be bit-equal to the plain PyTorch version and to
 // the JAX package as XLA compiles it. Built with --fmad=false, so no product
@@ -68,12 +65,20 @@
 //
 // The reciprocal route. The four quotients a / s of a scored cell are
 // computed without MUFU division as q0 = a*rcp, r = fma(-s, q0, a),
-// q = fma(r, rcp, q0), with rcp = RN(1/s) from the table (Markstein's
-// correction): with rcp correctly rounded, r is exact and q is the correctly
-// rounded a / s, i.e. __fdiv_rn(a, s), as long as nothing overflows or
-// underflows. The route is taken for a row and a tile when every value that
-// enters a quotient is 0 or has a magnitude in [2^-40, 2^60]: the task's
-// req_c, req_m; the tile's idle_c, idle_m and s_c, s_m (of nodes that pass
+// q = fma(r, rcp, q0), with rcp = RN(1/s) from the table: one Markstein
+// correction. q is RN(a / s), i.e. __fdiv_rn(a, s), wherever nothing
+// overflows or underflows. Powers of two scale out, so take significands
+// a, s in [1, 2). Where a >= s, q0 is within (a/4 + 1/2) ulp of a / s, a
+// faithful rounding, and Markstein's theorem (rcp = RN(1/s), q0 faithful)
+// gives RN(a / s). Where a < s, q0 can be up to 2 ulp off; then q differs
+// from a / s by at most |q0 - a/s| * 2^-23, about 2^-22 ulp, and can
+// round the other way only if a / s lies that close to a rounding
+// midpoint. Those pairs are few (2^25 a - s m = c, |c| <= 8, for a
+// midpoint m), and tests/test_torch_bid.py checks every one of them
+// (23 M pairs; q0 alone is wrong on half of them).
+// The route is taken for a row and a tile when every value that enters a
+// quotient is 0 or has a magnitude in [2^-40, 2^60]: the task's req_c,
+// req_m; the tile's idle_c, idle_m and s_c, s_m (of nodes that pass
 // cap_ok). Then every nonzero numerator lies in [2^-63, 2^65] (a multiple of
 // 2^-63 below 2^61, times 10 at most), every quotient in [2^-123, 2^105] and
 // every nonzero remainder r above 2^-110: all normal floats. Where s = 0
@@ -544,105 +549,6 @@ __device__ __forceinline__ void sparse_row(
   }
 }
 
-// One row of the main path's sparse loop, staged a pass ahead: a lane's
-// four candidates and the row's operands (R = 2).
-struct StagedRow {
-  int4 c;
-  float4 s;
-  float fit0, fit1, req0, req1;
-  int32_t tid;
-  bool ok;
-};
-
-__device__ __forceinline__ StagedRow stage_row(
-    const float* fit, const float* req, const int32_t* cand,
-    const float* cand_static, const int32_t* task_ids, int row, bool ok,
-    int k, int K) {
-  StagedRow r;
-  r.ok = ok;
-  r.c = make_int4(-1, -1, -1, -1);  // padding: never dereferenced
-  r.s = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  r.fit0 = r.fit1 = r.req0 = r.req1 = 0.0f;
-  r.tid = 0;
-  if (ok) {
-    if (k < K) {
-      r.c = __ldg(reinterpret_cast<const int4*>(
-          cand + static_cast<size_t>(row) * K + k));
-      r.s = __ldg(reinterpret_cast<const float4*>(
-          cand_static + static_cast<size_t>(row) * K + k));
-    }
-    r.fit0 = fit[2 * static_cast<size_t>(row)];
-    r.fit1 = fit[2 * static_cast<size_t>(row) + 1];
-    r.req0 = req[2 * static_cast<size_t>(row)];
-    r.req1 = req[2 * static_cast<size_t>(row) + 1];
-    r.tid = task_ids[row];
-  }
-  return r;
-}
-
-template <bool kRoute>
-__device__ __forceinline__ void sparse_quad(const Row<2>& tr, const Table& tb,
-                                            const StagedRow& r, int N,
-                                            float lr_w, float br_w,
-                                            int32_t& best_key,
-                                            int32_t& best_id) {
-  sparse_cell<2, true, kRoute>(tr, tb, nullptr, nullptr, nullptr, r.c.x,
-                               r.s.x, N, 2, lr_w, br_w, best_key, best_id);
-  sparse_cell<2, true, kRoute>(tr, tb, nullptr, nullptr, nullptr, r.c.y,
-                               r.s.y, N, 2, lr_w, br_w, best_key, best_id);
-  sparse_cell<2, true, kRoute>(tr, tb, nullptr, nullptr, nullptr, r.c.z,
-                               r.s.z, N, 2, lr_w, br_w, best_key, best_id);
-  sparse_cell<2, true, kRoute>(tr, tb, nullptr, nullptr, nullptr, r.c.w,
-                               r.s.w, N, 2, lr_w, br_w, best_key, best_id);
-}
-
-// The main path's sparse rows (R = 2, the table in shared memory, K <= 64
-// and a multiple of 4, slabs 16-byte aligned): a lane holds one int4/float4
-// of candidates. While a row is scored, the slab and operands of the
-// block's next row are in flight, and the gate of the row after that.
-__device__ __forceinline__ void sparse_rows_staged(
-    const Table& tb, bool table_route, const float* fit, const float* req,
-    const uint8_t* task_ok, const int32_t* cand, const float* cand_static,
-    const float* eps, const int32_t* task_ids, int32_t* bid,
-    uint8_t* any_feas, int T, int N, int K, float lr_w, float br_w) {
-  constexpr int kRowsPerBlock = sparse_threads(2) / 16;
-  const int lane16 = threadIdx.x & 15;
-  const int k = lane16 * 4;
-  const int stride = gridDim.x * kRowsPerBlock;
-  const float eps0 = eps[0], eps1 = eps[1];
-  int row = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 4);
-  bool ok_next = row + stride < T && task_ok[row + stride];
-  StagedRow cur = stage_row(fit, req, cand, cand_static, task_ids, row,
-                            row < T && task_ok[row], k, K);
-  for (int base = blockIdx.x * kRowsPerBlock; base < T;
-       base += stride, row += stride) {
-    const bool ok_after = row + 2 * stride < T && task_ok[row + 2 * stride];
-    const StagedRow nxt = stage_row(fit, req, cand, cand_static, task_ids,
-                                    row + stride, ok_next, k, K);
-    int32_t best_key = -1;
-    int32_t best_id = N;
-    if (cur.ok) {
-      Row<2> tr;
-      tr.fit[0] = cur.fit0;
-      tr.fit[1] = cur.fit1;
-      tr.eps[0] = eps0;
-      tr.eps[1] = eps1;
-      tr.req_c = cur.req0;
-      tr.req_m = cur.req1;
-      tr.th = mix13(static_cast<uint32_t>(cur.tid) * kRowHashMul);
-      if (table_route && in_route(cur.req0) && in_route(cur.req1)) {
-        sparse_quad<true>(tr, tb, cur, N, lr_w, br_w, best_key, best_id);
-      } else {
-        sparse_quad<false>(tr, tb, cur, N, lr_w, br_w, best_key, best_id);
-      }
-    }
-    reduce_and_store<16>(best_key, best_id, lane16, row < T, row, N, bid,
-                         any_feas);
-    cur = nxt;
-    ok_next = ok_after;
-  }
-}
-
 // kTable: the table of all N nodes is in shared memory; otherwise idle/cap
 // are gathered from device memory per candidate.
 template <int kR, bool kTable>
@@ -663,16 +569,6 @@ bid_sparse_kernel(const float* __restrict__ fit, const float* __restrict__ req,
   const Table tb = table_view(tile);
   bool table_route = false;
   if (kTable) table_route = build_tile<kR>(tb, 0, N, idle, cap, cap_ok, R);
-  if constexpr (kR == 2 && kTable) {
-    if (K <= 64 && (K & 3) == 0 &&
-        ((reinterpret_cast<uintptr_t>(cand) |
-          reinterpret_cast<uintptr_t>(cand_static)) & 15u) == 0) {
-      sparse_rows_staged(tb, table_route, fit, req, task_ok, cand,
-                         cand_static, eps, task_ids, bid, any_feas, T, N, K,
-                         lr_w, br_w);
-      return;
-    }
-  }
   for (int base = blockIdx.x * kRowsPerBlock; base < T;
        base += gridDim.x * kRowsPerBlock) {
     const int row = base + (threadIdx.x >> 4);

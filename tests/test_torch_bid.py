@@ -349,6 +349,66 @@ def test_reciprocal_route_equals_ieee_division(a_mode, s_mode):
     assert np.array_equal(q.numpy().view(np.int32), (a / s).view(np.int32))
 
 
+def _near_midpoint_pairs(max_c):
+    """All 24-bit significand pairs (A, B), 2^23 <= A < B < 2^24, whose
+    quotient A/B lies within max_c * 2^-25 of its ulp from a rounding
+    midpoint M * 2^-25 (M odd, 2^24 <= M < 2^25): 2^25*A - B*M = c with
+    0 < |c| <= max_c. For B = 2^k * B' (B' odd), B'*M = -c/2^k modulo
+    2^(25-k), so M is B'^-1 * (-c/2^k) plus multiples of 2^(25-k);
+    k <= 3, since c is never 0 (a quotient is never a midpoint)."""
+    As, Bs = [], []
+    for k in range(4):
+        Bp = np.arange((1 << 23) >> k, (1 << 24) >> k, dtype=np.int64)
+        Bp = Bp[Bp & 1 == 1]
+        B = Bp << k
+        mod = 1 << (25 - k)
+        inv = Bp.copy()  # Newton's iteration for B'^-1 modulo 2^(25-k)
+        for _ in range(4):
+            inv = inv * ((2 - Bp * inv) % mod) % mod
+        for c in range(-max_c, max_c + 1):
+            if c == 0 or c % (1 << k):
+                continue
+            M0 = (-(c >> k) * inv) % mod
+            for j in range(1 << k):
+                M = M0 + j * mod
+                A = (B * M + c) >> 25
+                keep = ((M >= 1 << 24) & (M < 1 << 25) & (M & 1 == 1)
+                        & (A >= 1 << 23) & (A < B))
+                assert np.all((B * M + c)[keep] % (1 << 25) == 0)
+                As.append(A[keep])
+                Bs.append(B[keep])
+    return np.concatenate(As), np.concatenate(Bs)
+
+
+def test_reciprocal_route_exhaustive_near_midpoints():
+    """The reciprocal route is RN(a / s) for every float32 pair in its
+    range, not only the sampled ones. Scaling by powers of two is exact
+    there, so significands a, s in [1, 2) suffice. Where a >= s,
+    q0 = RN(a * RN(1/s)) is within (a/4 + 1/2) ulp of a/s, a faithful
+    rounding, and Markstein's theorem gives RN(a/s). Where a < s, q0 can
+    be up to 2 ulp off (this test meets ~half of its pairs with q0
+    wrong), and q = RN(q0 + RN(r) * rcp) is a/s + e*(d1 + d2 + d1*d2)
+    with |e| < 2 ulp and |d1|, |d2| <= 2^-24: within 8 * 2^-25 ulp of
+    a/s. It can round otherwise than a/s only when a midpoint lies that
+    close, i.e. 2^25*A - B*M = c with 0 < |c| <= 8 (A/B within
+    |c| * 2^-24 / s ulp of the midpoint M). Every such pair is checked."""
+    from kube_batch_tpu_torch.solver.kernels import _fma_f32
+
+    A, B = _near_midpoint_pairs(max_c=9)
+    assert A.size > 20_000_000
+    for i in range(0, A.size, 1 << 22):
+        a = ((A[i:i + (1 << 22)] - (1 << 23)) | (127 << 23)).astype(
+            np.int32).view(np.float32)
+        s = ((B[i:i + (1 << 22)] - (1 << 23)) | (127 << 23)).astype(
+            np.int32).view(np.float32)
+        at, st = torch.from_numpy(a), torch.from_numpy(s)
+        rcp = 1.0 / st
+        q0 = at * rcp
+        q = _fma_f32(_fma_f32(-st, q0, at), rcp, q0)
+        assert np.array_equal(q.numpy().view(np.int32),
+                              (a / s).view(np.int32))
+
+
 def test_key_rounding_by_magic_add():
     """The kernels' key score, rint(clip(score*50, -2^19, 2^19-1)) + 2^19
     read from the bits of u + 1.5*2^23, equals clip(rint(score*50) +
