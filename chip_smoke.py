@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's solver on one CUDA card and check it.
+"""Drive the PyTorch port's scheduling cycle on one CUDA card and check it.
 
 Run from the root of the repository: ``python3 chip_smoke.py``. It needs
 one CUDA device and ``nvcc`` (``$CUDA_HOME`` or ``/usr/local/cuda``), and
@@ -26,10 +26,25 @@ phase fails. Phases:
    the main path's shapes each kernel's time per launch over 20
    back-to-back wrapper calls (CUDA events: ``ms``), its device time per
    launch with the L2 flushed before each (``device_ms``), the plain
-   versions' times and each kernel's bound.
+   versions' times and each kernel's bound;
+7. cycle: the system's own path from a cluster to validated placements.
+   (a) ``build_cluster(50000, 5000, 5, 500, seed=0)`` in the port's
+   ``SchedulerCache`` → ``open_session`` with the default tiers →
+   ``tensorize`` packed through the device-resident cache onto ``cuda``
+   → ``solve_auto`` (``bid_sparse``) → ``validate_placements`` →
+   ``close_session``; the pack equals ``pack_inputs`` of the host
+   bundle and the result equals the same solve on the CPU. (b) the same
+   at 10,000 x 1,000 (4 queues, 100 gangs; ``bid_dense``). (c) three
+   churn cycles on (a): 1 % of pending pods deleted and as many added,
+   the previous cycle's first 1 % of placements bound through
+   ``cache.bind``, 1 % of nodes updated; the pack must patch in place
+   and equal a cold pack, the solve the CPU's. Warm medians of 3 for
+   the snapshot, ``open_session``, ``tensorize`` (host), the pack (full
+   and patched), the solve and the validation.
 
 Each phase sets the kernels' launch counters to 0 just before it drives
-the path and reads them just after. The next-to-last line of standard
+the path and reads them just after (phase 7: around each cycle, from
+``open_session`` to the solve). The next-to-last line of standard
 output is the kernels' JSON record, the last ``{"ok": true, ...}``.
 Details go to ``chiprun_out/chip_smoke.json``.
 """
@@ -47,13 +62,26 @@ from pathlib import Path
 import numpy as np
 import torch
 
+import kube_batch_tpu_torch.plugins  # noqa: F401 (registers the plugins)
+from kube_batch_tpu_torch.api import PodPhase, build_resource_list
+from kube_batch_tpu_torch.framework import close_session, open_session
 from kube_batch_tpu_torch.solver import _build
 from kube_batch_tpu_torch.solver import bid_kernels as BK
+from kube_batch_tpu_torch.solver import device_cache as DC
 from kube_batch_tpu_torch.solver import kernels as K
+from kube_batch_tpu_torch.solver import snapshot as S
 from kube_batch_tpu_torch.solver.masks import CombinedMask
 from kube_batch_tpu_torch.solver.snapshot import pack_inputs
 from kube_batch_tpu_torch.solver.topk import select_candidates, topk_config
 from kube_batch_tpu_torch.solver.validate import validate_placements
+from kube_batch_tpu_torch.utils.test_utils import (
+    DEFAULT_TIERS_ARGS,
+    build_cluster,
+    build_node,
+    build_pod,
+    build_pod_group,
+    make_tiers,
+)
 
 OUT_DIR = Path("chiprun_out")
 
@@ -595,6 +623,254 @@ def sass_dense_loop(lib_path):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 7: the scheduling cycle through the system's own entry points.
+# ---------------------------------------------------------------------------
+
+
+class CycleClock:
+    """Host clocks around the cycle's layers, each read after a
+    synchronize where it brackets device work: the cache snapshot
+    (inside ``open_session``) and the device pack (inside
+    ``tensorize``) are timed by wrapping them for the clock's lifetime."""
+
+    def __init__(self, cache):
+        self.cache = cache
+        self.ms = {}
+
+    def __enter__(self):
+        orig_snapshot = self.cache.snapshot
+        orig_pack = DC.DeviceSnapshotCache.pack
+        clock = self
+
+        def snapshot(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = orig_snapshot(*args, **kwargs)
+            clock.ms["snapshot_ms"] = (time.perf_counter() - t0) * 1e3
+            return out
+
+        def pack(dc, arrays):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = orig_pack(dc, arrays)
+            torch.cuda.synchronize()
+            clock.ms["pack_ms"] = (time.perf_counter() - t0) * 1e3
+            return out
+
+        self._orig_pack = orig_pack
+        self.cache.snapshot = snapshot
+        DC.DeviceSnapshotCache.pack = pack
+        return self
+
+    def __exit__(self, *exc):
+        del self.cache.snapshot
+        DC.DeviceSnapshotCache.pack = self._orig_pack
+        return False
+
+
+def drive_cycle(cache, tiers):
+    """One cycle: open_session → tensorize (packed onto the cache's
+    device) → solve_auto with the kernels → validate_placements →
+    close_session. Launch counters are zeroed before open_session and
+    read after the solve."""
+    BK.bid_dense.launches = 0
+    BK.bid_sparse.launches = 0
+    with CycleClock(cache) as clock:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ssn = open_session(cache, tiers)
+        t1 = time.perf_counter()
+        packed, ctx = S.tensorize(ssn)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        tstats = dict(S.last_tensorize_stats)
+        pstats = dict(DC.last_pack_stats)
+        res = K.solve_auto(packed, use_kernel=True)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        launches = {"bid_dense": BK.bid_dense.launches,
+                    "bid_sparse": BK.bid_sparse.launches}
+        T, N = len(ctx.tasks), len(ctx.nodes)
+        bad, reasons = validate_placements(ctx.host_inputs, res.assigned,
+                                           T, N)
+        t4 = time.perf_counter()
+        close_session(ssn)
+        ms = dict(clock.ms)
+    ms.update(open_session_ms=(t1 - t0) * 1e3,
+              tensorize_ms=(t2 - t1) * 1e3,
+              tensorize_host_ms=(t2 - t1) * 1e3 - ms["pack_ms"],
+              solve_ms=(t3 - t2) * 1e3, validate_ms=(t4 - t3) * 1e3)
+    check(bad.size == 0, f"phase 7: validation rejected {reasons}")
+    return {"packed": packed, "ctx": ctx, "res": res, "ms": ms,
+            "launches": launches, "tensorize": tstats, "pack": pstats,
+            "T": T, "N": N}
+
+
+def cold_pack(host, dev):
+    """A pack of ``host`` into a fresh device cache, timed."""
+    arrays = S.stack_inputs(host)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    packed = DC.DeviceSnapshotCache(dev).pack(arrays)
+    torch.cuda.synchronize()
+    return packed, (time.perf_counter() - t0) * 1e3
+
+
+def check_cycle(cyc, dev, what, cold=None):
+    """The resident pack equals ``pack_inputs`` of the host bundle (and
+    a cold pack, when given) field by field, and the card's result
+    equals the CPU's bit for bit."""
+    host = cyc["ctx"].host_inputs
+    want = pack_inputs(host, dev)
+    for f in K.PackedInputs._fields:
+        got = getattr(cyc["packed"], f)
+        check(torch.equal(got, getattr(want, f)),
+              f"{what}: resident {f} differs from pack_inputs")
+        if cold is not None:
+            check(torch.equal(got, getattr(cold, f)),
+                  f"{what}: patched {f} differs from a cold pack")
+    t0 = time.perf_counter()
+    cpu = K.solve_auto(pack_inputs(host, "cpu"), use_kernel=True)
+    cpu_s = time.perf_counter() - t0
+    same_result(cyc["res"].to_numpy(), cpu.to_numpy(), what)
+    return cpu_s
+
+
+def cycle_summary(cyc):
+    res, T = cyc["res"], cyc["T"]
+    out = dict(summarize(res, T), T=T, N=cyc["N"],
+               Tp=int(cyc["packed"].task_f32.shape[1]),
+               classes=cyc["tensorize"]["sparse"].get("classes", 0),
+               slab_rows=int(cyc["packed"].cand_idx.shape[0]),
+               launches=cyc["launches"], ms=cyc["ms"],
+               tensorize=cyc["tensorize"],
+               pack={k: cyc["pack"][k] for k in (
+                   "reuses", "patches", "uploads", "rows_patched",
+                   "bytes_shipped", "bytes_total", "field_outcomes")})
+    return out
+
+
+def median_ms(cycles, key):
+    return statistics.median(c["ms"][key] for c in cycles)
+
+
+def churn(cache, cyc, rng, cycle):
+    """1 % of pending pods deleted and as many added in new gangs, the
+    previous cycle's first 1 % of placements bound through cache.bind,
+    1 % of nodes updated (allocatable CPU 32 → 31)."""
+    ctx, T = cyc["ctx"], cyc["T"]
+    n = max(1, T // 100)
+    deleted = set()
+    for t in ctx.tasks[::100][:n]:
+        cache.delete_pod(t.pod)
+        deleted.add(t.uid)
+    per_gang = 100
+    for g in range(-(-n // per_gang)):
+        name = f"churn{cycle}-{g}"
+        cache.add_pod_group(build_pod_group(
+            name, namespace="bench", min_member=1, queue=f"q{g % 5}"))
+        for i in range(min(per_gang, n - g * per_gang)):
+            cache.add_pod(build_pod(
+                "bench", f"{name}-p{i}", "", PodPhase.PENDING,
+                build_resource_list(
+                    cpu=f"{int(rng.choice([250, 500, 1000, 2000, 4000]))}m",
+                    memory=f"{int(rng.choice([256, 512, 1024, 4096, 8192]))}Mi",
+                ),
+                group_name=name))
+    assigned = cyc["res"].assigned[:T].cpu().numpy()
+    placed = [i for i in np.flatnonzero(assigned >= 0)
+              if ctx.tasks[i].uid not in deleted][:n]
+    for i in placed:
+        cache.bind(ctx.tasks[i], ctx.nodes[int(assigned[i])].name)
+    check(cache.wait_for_side_effects(), "phase 7: binds did not drain")
+    check(cache.wait_for_bookkeeping(), "phase 7: bookkeeping did not drain")
+    names = sorted(cache.nodes)
+    for j in range(0, len(names), 100):
+        old = cache.nodes[names[j]].node
+        cache.update_node(old, build_node(names[j], build_resource_list(
+            cpu="31", memory="128Gi", pods=110)))
+    return {"deleted": len(deleted), "added": n, "bound": len(placed),
+            "nodes_updated": len(range(0, len(names), 100))}
+
+
+# Phase 7's clusters: (name, build_cluster arguments, kernel of the path).
+CYCLES = (
+    ("a_50k_5k", (50_000, 5_000, 5, 500), "bid_sparse"),
+    ("b_10k_1k", (10_000, 1_000, 4, 100), "bid_dense"),
+)
+
+
+def run_cycles(dev):
+    """Phase 7: (a) 50k×5k, (c) three churn cycles on it, (b) 10k×1k."""
+    tiers = make_tiers(*DEFAULT_TIERS_ARGS)
+    out = {}
+    n_fields = len(K.PackedInputs._fields)
+    for name, shape, kernel in CYCLES:
+        t0 = time.perf_counter()
+        cache = build_cluster(*shape, seed=0)
+        build_s = time.perf_counter() - t0
+        DC.device_cache_of(cache, dev)
+        first = drive_cycle(cache, tiers)
+        what = f"phase 7 {name}"
+        check(first["launches"][kernel] > 0, f"{what}: {kernel} never launched")
+        check(first["pack"]["uploads"] == n_fields,
+              f"{what}: the first pack did not upload every field")
+        cpu_s = check_cycle(first, dev, what)
+        warm = [drive_cycle(cache, tiers) for _ in range(3)]
+        for w in warm:
+            check(w["pack"]["reuses"] == n_fields,
+                  f"{what}: an unchanged cycle did not reuse every buffer")
+            check(w["launches"][kernel] > 0, f"{what}: {kernel} not launched")
+            same_result(w["res"].to_numpy(), first["res"].to_numpy(), what)
+        fulls = [cold_pack(first["ctx"].host_inputs, dev)[1]
+                 for _ in range(3)]
+        rec = {
+            "build_cluster_s": build_s, "cpu_solve_s": cpu_s,
+            "first": cycle_summary(first),
+            "warm_ms": {k: median_ms(warm, k) for k in (
+                "snapshot_ms", "open_session_ms", "tensorize_host_ms",
+                "pack_ms", "solve_ms", "validate_ms")},
+            "pack_full_ms": statistics.median(fulls),
+            "pack_full_bytes": first["pack"]["bytes_shipped"],
+        }
+        if kernel == "bid_sparse":
+            rng = np.random.RandomState(1)
+            prev, churned = first, []
+            for c in range(3):
+                events = churn(cache, prev, rng, c)
+                cyc = drive_cycle(cache, tiers)
+                cw = f"{what} churn {c}"
+                check(cyc["launches"][kernel] > 0, f"{cw}: {kernel} idle")
+                check(cyc["pack"]["patches"] > 0, f"{cw}: nothing patched")
+                check(cyc["pack"]["uploads"] < n_fields,
+                      f"{cw}: every field re-uploaded")
+                cold, _ = cold_pack(cyc["ctx"].host_inputs, dev)
+                cs = check_cycle(cyc, dev, cw, cold=cold)
+                churned.append(dict(cycle_summary(cyc), events=events,
+                                    cpu_solve_s=cs))
+                prev = cyc
+            rec["churn"] = churned
+            rec["pack_patched_ms"] = statistics.median(
+                c["ms"]["pack_ms"] for c in churned)
+            rec["pack_patched_bytes"] = statistics.median(
+                c["pack"]["bytes_shipped"] for c in churned)
+            rec["churn_ms"] = {k: statistics.median(
+                c["ms"][k] for c in churned) for k in (
+                "snapshot_ms", "open_session_ms", "tensorize_host_ms",
+                "pack_ms", "solve_ms", "validate_ms")}
+        cache.shutdown()
+        out[name] = rec
+        log(f"phase 7: {name}: {json.dumps(rec['warm_ms'])}; pack full "
+            f"{rec['pack_full_ms']:.3f} ms ({rec['pack_full_bytes']} B); "
+            f"first {json.dumps({k: v for k, v in rec['first'].items() if k not in ('tensorize', 'pack')})}")
+        if "churn" in rec:
+            log(f"phase 7: {name} churn: {json.dumps(rec['churn_ms'])}; "
+                f"pack patched {rec['pack_patched_ms']:.3f} ms "
+                f"({rec['pack_patched_bytes']} B); "
+                + "; ".join(json.dumps(c["pack"]) for c in rec["churn"]))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -743,9 +1019,7 @@ def main() -> int:
             "library_ms": None,
             "device_ms": dev_ms,
         })
-    report.update(phases=phases, kernels=kern, records=records,
-                  seconds=time.perf_counter() - t0)
-    (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+    report.update(phases=phases, kernels=kern, records=records)
     for name, ph in phases.items():
         prof = ph["profile"]
         log(f"phase 6: {name}: warm {ph['warm_ms']:.1f} ms, rounds "
@@ -759,6 +1033,12 @@ def main() -> int:
             f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.3f} ms by "
             f"{rec['bound_by']}), {rec['launches']} launches; no PyTorch "
             f"call computes it, so library_ms is null")
+
+    # -- phase 7: the cycle ---------------------------------------------------
+    report["cycle"] = run_cycles(dev)
+    report["seconds"] = time.perf_counter() - t0
+    (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+    log(f"all phases passed in {report['seconds']:.1f} s")
     log(smi)
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

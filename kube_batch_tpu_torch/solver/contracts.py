@@ -11,7 +11,12 @@ must agree). Works on NumPy arrays and torch tensors alike.
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Optional
+
+# KBT_CHECK_CONTRACTS=1 validates every tensorize and device-cache pack
+# (``pack_inputs`` always validates).
+CHECK_CONTRACTS_ENV = "KBT_CHECK_CONTRACTS"
 
 SOLVER_INPUT_CONTRACTS = {
     "task_req":        {"shape": ["T", "R"], "dtype": "f32"},
@@ -69,6 +74,10 @@ _DTYPE_NAMES = {
     "i32": ("int32", "torch.int32"),
     "bool": ("bool", "bool_", "torch.bool"),
 }
+
+
+def contracts_enabled() -> bool:
+    return os.environ.get(CHECK_CONTRACTS_ENV, "0") == "1"
 
 
 class ContractViolation(AssertionError):

@@ -1,0 +1,271 @@
+"""Device-resident snapshot: persistent solver buffers + delta patches.
+
+A port of the reference's ``solver/device_cache.py``. The host side of
+the snapshot is incremental (fingerprint-patched columnar arrays in
+``snapshot._TensorizeCache``); this module keeps the packed bundle
+resident on the device the same way, so a cycle ships only what
+changed instead of re-uploading every stacked buffer.
+
+The cache holds, per :class:`~.kernels.PackedInputs` field, one
+resident torch buffer AND the exact host copy it was built from.
+Packing a new snapshot then becomes, per field:
+
+- **reuse** — bit-identical host array → hand back the resident buffer,
+  zero bytes shipped (the steady-state no-churn cycle);
+- **patch** — same shape/dtype, few dirty rows → the dirty rows and
+  their indices go to the device in ONE host→device copy and are
+  written into the resident buffer in place (``index_copy_``): no new
+  allocation, no host synchronization;
+- **full upload** — cold cache, shape/dtype drift (bucket growth,
+  resource-layout change), or bulk dirtiness past the patch break-even
+  (the same 25% rule as the host-side ``_refresh_node_arrays``).
+
+Change detection is a host-side diff against the cached host copy,
+exact by construction: whichever path ran, the resident buffer equals
+the host array bit for bit.
+
+The patched row count is bucketed to a power of two (``_row_bucket``)
+exactly as the reference buckets it for its jitted scatter, so
+``last_pack_stats`` (bytes shipped included) reads the same on the same
+sequence; only the first ``rows`` entries of the bucket are written.
+
+The device is fixed when :func:`device_cache_of` first creates the
+cache (``cuda`` unless the caller asks for ``"cpu"``). The port has one
+device layout, so there is no layout token: the reference's sharded
+placement is single-device here.
+
+OWNERSHIP: the returned PackedInputs buffers belong to the cache and
+are valid until the next :meth:`DeviceSnapshotCache.pack` on the same
+scheduler cache — a later patch overwrites them in place. Consume the
+inputs within the cycle; copy anything that must outlive it. Patches
+are queued on the current stream after the previous cycle's solve, so
+stream order alone keeps them from racing it.
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+from .contracts import contracts_enabled, validate_packed
+
+logger = logging.getLogger(__name__)
+
+# Forensics of the most recent pack(). Single-threaded by construction,
+# like snapshot.last_tensorize_stats.
+last_pack_stats: dict = {}
+
+# Axis along which cycle-to-cycle deltas are row-shaped, per
+# PackedInputs field (stacked buffers carry their stack dim first).
+_ROW_AXIS = {
+    "task_f32": 1,
+    "task_i32": 1,
+    "node_f32": 1,
+    "node_i32": 1,
+    "group_feas": 0,
+    "pair_idx": 0,
+    "pair_feas": 0,
+    "score_idx": 0,
+    "score_rows": 0,
+    "queue_f32": 1,
+    "misc": 0,
+    "cand_idx": 0,
+    "cand_static": 0,
+    "cand_info": 1,
+}
+
+# Past this dirty fraction a full upload beats row patching (mirrors
+# the host-side bulk-dirty rule in snapshot._refresh_node_arrays).
+_BULK_DIRTY_DEN = 4
+# Buffers below this size are cheaper to re-ship whole than to patch.
+_MIN_PATCH_BYTES = 4096
+
+_TORCH_DTYPES = {
+    np.dtype(np.float32): torch.float32,
+    np.dtype(np.int32): torch.int32,
+    np.dtype(np.bool_): torch.bool,
+}
+
+
+def _row_bucket(n: int) -> int:
+    """Power-of-two bucket for the patched-row axis (the reference's
+    bucket for its jitted scatter, kept so the traffic stats agree)."""
+    if n <= 0:
+        return 1
+    return 1 << (n - 1).bit_length()
+
+
+class DeviceSnapshotCache:
+    """Per-scheduler-cache device residency for the solver's inputs.
+
+    Lives on the SchedulerCache object (``_torch_device_cache``
+    attribute), giving it exactly the lifetime of the mirror it
+    shadows — same pattern as ``snapshot._TensorizeCache``."""
+
+    __slots__ = ("device", "host", "dev")
+
+    def __init__(self, device=None):
+        self.device = resolve_device(device)
+        # field -> exact host copy of what is resident on device
+        self.host: Dict[str, np.ndarray] = {}
+        # field -> resident torch buffer on ``self.device``
+        self.dev: Dict[str, torch.Tensor] = {}
+
+    def drop(self) -> None:
+        """Release every resident buffer (shutdown / tests)."""
+        self.host.clear()
+        self.dev.clear()
+
+    # ------------------------------------------------------------------
+
+    def _diff_rows(self, name: str, arr: np.ndarray, cached: np.ndarray):
+        axis = _ROW_AXIS[name]
+        neq = arr != cached
+        if neq.ndim > 1:
+            red = tuple(i for i in range(neq.ndim) if i != axis)
+            dirty = neq.any(axis=red)
+        else:
+            dirty = neq
+        return np.nonzero(dirty)[0], arr.shape[axis]
+
+    def _upload(self, name: str, arr: np.ndarray, reason: str, stats):
+        # copy=True: on the CPU a plain .to() would alias the caller's
+        # array, and a later in-place patch would write through to it.
+        dev = torch.from_numpy(np.ascontiguousarray(arr)).to(
+            self.device, copy=True
+        )
+        self.host[name] = arr
+        self.dev[name] = dev
+        stats["uploads"] += 1
+        stats["bytes_shipped"] += arr.nbytes
+        stats["full_reasons"][name] = reason
+        stats["field_outcomes"][name] = "upload"
+        return dev
+
+    def _patch(self, name: str, arr: np.ndarray, rows: np.ndarray, stats):
+        axis = _ROW_AXIS[name]
+        nrows = arr.shape[axis]
+        n = int(rows.size)
+        K = _row_bucket(n)
+        rows_p = np.full(K, nrows, dtype=np.int32)
+        rows_p[:n] = rows
+        vals = np.take(arr, rows, axis=axis)
+        vshape = list(vals.shape)
+        vshape[axis] = K
+        vals_p = np.zeros(tuple(vshape), dtype=arr.dtype)
+        sl = [slice(None)] * vals.ndim
+        sl[axis] = slice(0, n)
+        vals_p[tuple(sl)] = vals
+        # One staging buffer holds the indices, then the rows (the row
+        # block starts at 4*K bytes, aligned for every field dtype), so
+        # the delta crosses in a single copy. Pinned on CUDA, so the
+        # copy is asynchronous; the caching host allocator keeps the
+        # block alive until the copy has run.
+        nb_idx = rows_p.nbytes
+        staging = torch.empty(
+            nb_idx + vals_p.nbytes, dtype=torch.uint8,
+            pin_memory=self.device.type == "cuda",
+        )
+        host = staging.numpy()
+        host[:nb_idx] = rows_p.view(np.uint8)
+        host[nb_idx:] = vals_p.reshape(-1).view(np.uint8)
+        staged = staging.to(self.device, non_blocking=True)
+        idx = staged[:nb_idx].view(torch.int32)[:n].long()
+        src = (
+            staged[nb_idx:].view(_TORCH_DTYPES[arr.dtype])
+            .view(vals_p.shape).narrow(axis, 0, n)
+        )
+        dev = self.dev[name]
+        dev.index_copy_(axis, idx, src)
+        self.host[name] = arr
+        stats["patches"] += 1
+        stats["rows_patched"] += n
+        stats["bytes_shipped"] += vals_p.nbytes + rows_p.nbytes
+        stats["field_outcomes"][name] = "patch"
+        return dev
+
+    def _pack_field(self, name: str, arr: np.ndarray, stats: dict):
+        """Reuse/patch/upload decision for ONE stacked field."""
+        cached = self.host.get(name)
+        dev = self.dev.get(name)
+        if cached is None or dev is None:
+            return self._upload(name, arr, "cold", stats)
+        if cached.shape != arr.shape or cached.dtype != arr.dtype:
+            return self._upload(name, arr, "shape-change", stats)
+        rows, nrows = self._diff_rows(name, arr, cached)
+        if rows.size == 0:
+            stats["reuses"] += 1
+            stats["field_outcomes"][name] = "reuse"
+            return dev
+        if arr.nbytes < _MIN_PATCH_BYTES:
+            return self._upload(name, arr, "small-buffer", stats)
+        if rows.size * _BULK_DIRTY_DEN > nrows:
+            return self._upload(name, arr, "bulk-dirty", stats)
+        return self._patch(name, arr, rows, stats)
+
+    def pack(self, arrays: Dict[str, np.ndarray]):
+        """Build a :class:`~.kernels.PackedInputs` from stacked host
+        arrays (``snapshot.stack_inputs``), reusing/patching resident
+        buffers per field (see the module docstring). Records per-cycle
+        forensics in :data:`last_pack_stats` and exports the aggregate
+        counters through ``metrics``."""
+        from .kernels import PackedInputs
+
+        if contracts_enabled():
+            validate_packed(arrays, where="device_cache.pack")
+
+        stats = {
+            "reuses": 0,
+            "patches": 0,
+            "uploads": 0,
+            "rows_patched": 0,
+            "bytes_shipped": 0,
+            "slab_bytes_shipped": 0,
+            "bytes_total": 0,
+            "full_reasons": {},
+            "field_outcomes": {},
+        }
+        fields: Dict[str, torch.Tensor] = {}
+        for name, arr in arrays.items():
+            stats["bytes_total"] += arr.nbytes
+            shipped_before = stats["bytes_shipped"]
+            fields[name] = self._pack_field(name, arr, stats)
+            if name.startswith("cand"):
+                stats["slab_bytes_shipped"] += (
+                    stats["bytes_shipped"] - shipped_before
+                )
+
+        last_pack_stats.clear()
+        last_pack_stats.update(stats)
+        try:
+            from .. import metrics
+
+            metrics.update_device_cache(stats)
+        except Exception:  # pragma: no cover - metrics must never kill
+            logger.exception("device-cache metrics export failed")
+        return PackedInputs(**fields)
+
+
+def device_cache_of(cache, device=None) -> Optional[DeviceSnapshotCache]:
+    """The scheduler cache's device snapshot cache, created on first use
+    for ``device`` (``cuda`` unless ``"cpu"`` is asked for; raises when
+    CUDA is absent). A later call naming a different device raises;
+    None for slots-only stand-ins (then callers pack uncached)."""
+    if cache is None:
+        return None
+    dc = getattr(cache, "_torch_device_cache", None)
+    if dc is None:
+        dc = DeviceSnapshotCache(device)
+        try:
+            cache._torch_device_cache = dc
+        except Exception:
+            return None
+    elif device is not None and torch.device(device) != dc.device:
+        raise ValueError(
+            f"the device cache lives on {dc.device}, not {device}"
+        )
+    return dc

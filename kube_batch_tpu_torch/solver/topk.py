@@ -9,9 +9,12 @@ each class's top-K nodes, and the solver's rounds then run on gathered
 idle, pod-count capacity open) has at most K nodes gets a complete slab
 (``cand_info[0]``, the refill gauge).
 
-Device-resident selection and the cross-cycle selection cache are later
-slices; this module always runs the full host computation, which the
-JAX package's cached and device paths are bit-equal to.
+A cross-cycle cache on the scheduler cache (``_SelectionCache``) keeps
+each class's integer key row and the class dedup between cycles, so a
+steady cycle recomputes only the columns of nodes that changed; cached
+and fresh selections are bit-identical by construction. Selection always
+runs on the host: the reference's device-resident selection is bit-equal
+to it by that package's contract and is not ported.
 
 ``KBT_SOLVER_TOPK`` overrides the policy: an integer forces that K at
 any problem size; ``0``/``off``/``dense`` disables sparsification.
@@ -19,6 +22,7 @@ any problem size; ``0``/``off``/``dense`` disables sparsification.
 
 from __future__ import annotations
 
+import hashlib
 import os
 from dataclasses import dataclass
 from typing import Dict, Optional
@@ -144,6 +148,52 @@ def _dyn_score_np(req, idle, cap, lr_w, br_w):
     ).astype(np.float32)
 
 
+class _SelectionCache:
+    """Cross-cycle per-class selection-key rows (stored on the
+    scheduler cache as ``_topk_sel_cache``).
+
+    A class's [N] integer key row is a pure function of (its feasibility
+    row, its req/fit rows, per-node idle/cap/count/max, eps, weights,
+    its class index). The feas/req/fit inputs are content-addressed by
+    digest; the node inputs by the shared node scan's (identity, _ver)
+    fingerprint — so a warm steady cycle recomputes each cached row
+    only at the columns whose node actually changed, O(C·churn) instead
+    of O(C·N). Any drift — new class shapes, changed weights, an
+    unfingerprintable call — misses to the exact full computation."""
+
+    __slots__ = ("sig", "node_objs", "node_ids", "node_vers", "rows",
+                 "dedup_key", "dedup")
+
+    def __init__(self):
+        self.sig = None
+        # The fingerprinted node objects are PINNED here: a pinned
+        # object's id can never be recycled under a new clone, so the id
+        # array stays an exact identity witness across cycles that skip
+        # selection.
+        self.node_objs = None
+        self.node_ids = None
+        self.node_vers = None
+        self.rows: Dict[tuple, np.ndarray] = {}
+        # Content-addressed class dedup: digest of the [T, 2+2R] key
+        # matrix -> its np.unique decomposition (a steady cycle's task
+        # content rarely moves; node churn never touches it).
+        self.dedup_key = None
+        self.dedup = None
+
+
+def _sel_cache_of(holder) -> Optional[_SelectionCache]:
+    if holder is None:
+        return None
+    sc = getattr(holder, "_topk_sel_cache", None)
+    if sc is None:
+        sc = _SelectionCache()
+        try:
+            holder._topk_sel_cache = sc
+        except Exception:
+            return None
+    return sc
+
+
 def _quantized_keys(score, elig, class_ids, cols):
     q = np.clip(
         np.round(score / np.float32(SCORE_QUANTUM)).astype(np.int64)
@@ -203,11 +253,16 @@ def select_candidates(
     lr_weight: float,
     br_weight: float,
     k: int,
+    cache_holder: Optional[object] = None,
+    # (ids i64[N], vers i64[N], [NodeInfo] pins) or None
+    node_fp: Optional[tuple] = None,
 ) -> Optional[CandidateSet]:
     """Run the fused feasibility + static-score selection pass.
 
-    Returns None (dense solve) when class dedup degenerates past the
-    selection budget."""
+    ``cache_holder`` (the scheduler cache) carries the cross-cycle
+    selection cache; ``node_fp`` is the node scan's fingerprint, without
+    which key rows are not reused. Returns None (dense solve) when class
+    dedup degenerates past the selection budget."""
     T, R = task_req.shape
     N = node_idle.shape[0]
     k = min(_pow2(k), _pow2(N))
@@ -224,11 +279,23 @@ def select_candidates(
         task_req.astype(np.float32),
         task_fit.astype(np.float32),
     ])
-    _, rep_idx, task_cand = np.unique(
-        key_mat, axis=0, return_index=True, return_inverse=True
-    )
-    task_cand = task_cand.reshape(-1).astype(np.int32)
-    rep_idx = rep_idx.astype(np.int64)
+    sc0 = _sel_cache_of(cache_holder)
+    dedup_key = None
+    if sc0 is not None:
+        dedup_key = hashlib.blake2b(
+            key_mat.tobytes(), digest_size=16
+        ).digest()
+    if sc0 is not None and sc0.dedup_key == dedup_key:
+        rep_idx, task_cand = sc0.dedup
+    else:
+        _, rep_idx, task_cand = np.unique(
+            key_mat, axis=0, return_index=True, return_inverse=True
+        )
+        task_cand = task_cand.reshape(-1).astype(np.int32)
+        rep_idx = rep_idx.astype(np.int64)
+        if sc0 is not None:
+            sc0.dedup_key = dedup_key
+            sc0.dedup = (rep_idx, task_cand)
     C = len(rep_idx)
     if C * N > max(_CLASS_BUDGET_FACTOR * T * k, 1 << 22):
         return None
@@ -250,9 +317,40 @@ def select_candidates(
     cand_static = np.zeros((C, k), np.float32)
     cand_info = np.zeros((3, C), np.int32)
 
+    # Cross-cycle key-row cache: usable only with a node fingerprint and
+    # no Releasing capacity (the releasing column is not cached). The
+    # port has one device layout, so the signature carries no layout
+    # token.
+    sc = _sel_cache_of(cache_holder) if node_fp is not None else None
+    changed_cols = None
+    sig = (N, int(k), R, eps32.tobytes(),
+           float(lr_weight), float(br_weight))
+    if sc is not None and not has_releasing:
+        ids, vers, node_objs = node_fp
+        if (
+            sc.sig == sig
+            and sc.node_ids is not None
+            and len(sc.node_ids) == N
+        ):
+            changed_cols = np.nonzero(
+                (ids != sc.node_ids) | (vers != sc.node_vers)
+            )[0]
+        else:
+            sc.rows = {}
+        sc.sig = sig
+        sc.node_objs = node_objs
+        sc.node_ids = ids
+        sc.node_vers = vers
+    elif sc is not None:
+        sc.rows = {}
+        sc.node_objs = None
+        sc.node_ids = None
+
     node_ids = np.arange(N, dtype=np.int64)
     # Composite tie term: smaller node id -> larger low bits.
     tie_lo = (np.int64(1) << _TIE_BITS) - 1 - node_ids
+    new_rows: Dict[tuple, np.ndarray] = {}
+    cache_hits = 0
     chunk = max(1, min(C, (1 << 22) // max(N, 1)))
     for c0 in range(0, C, chunk):
         c1 = min(c0 + chunk, C)
@@ -261,10 +359,49 @@ def select_candidates(
         fit_chunk = rep_fit[c0:c1]
         req_chunk = rep_req[c0:c1]
 
+        # Per-class cache resolution: digest the content inputs, reuse
+        # the cached key row with only the changed columns recomputed.
         skey = np.empty((rows, N), dtype=np.int64)
+        row_keys = {}
+        misses = list(range(rows))
+        if sc is not None and not has_releasing:
+            misses = []
+            hit_locals = []
+            for local in range(rows):
+                ci = c0 + local
+                if rep_priv[ci] >= 0:
+                    misses.append(local)  # private rows: never cached
+                    continue
+                key = (ci, hashlib.blake2b(
+                    feas[local].tobytes()
+                    + fit_chunk[local].tobytes()
+                    + req_chunk[local].tobytes(),
+                    digest_size=16,
+                ).digest())
+                row_keys[local] = key
+                row = (
+                    sc.rows.get(key) if changed_cols is not None else None
+                )
+                if row is None:
+                    misses.append(local)
+                    continue
+                skey[local] = row
+                hit_locals.append(local)
+            if hit_locals and changed_cols is not None and len(changed_cols):
+                sub = _skey_block(
+                    req_chunk[hit_locals], fit_chunk[hit_locals],
+                    [c0 + lo for lo in hit_locals], changed_cols,
+                    idle32, cap32, eps32, cap_ok0,
+                    feas[hit_locals][:, changed_cols],
+                    lr_weight, br_weight,
+                )
+                for i, local in enumerate(hit_locals):
+                    skey[local][changed_cols] = sub[i]
+            cache_hits += len(hit_locals)
+
         srows = {}
         plain = []
-        for local in range(rows):
+        for local in misses:
             p = int(rep_priv[c0 + local])
             if p >= 0 and p in score_rows_map:
                 # Singleton classes keep their private static rows: the
@@ -289,6 +426,9 @@ def select_candidates(
             )
             for i, local in enumerate(plain):
                 skey[local] = full[i]
+
+        for local, key in row_keys.items():
+            new_rows[key] = skey[local].copy()
 
         elig_count = (skey >= 0).sum(axis=1)
         cand_info[0, c0:c1] = np.minimum(elig_count, np.iinfo(np.int32).max)
@@ -317,6 +457,9 @@ def select_candidates(
             sel = row < N
             cand_static[c0 + local, sel] = srow[row[sel]]
 
+    if sc is not None and not has_releasing:
+        sc.rows = new_rows
+
     slab_bytes = (
         cand_idx.nbytes + cand_static.nbytes + cand_info.nbytes
         + task_cand.nbytes
@@ -328,6 +471,7 @@ def select_candidates(
         "dense_mask_bytes": int(T) * int(N),
         "dense_score_bytes": int(T) * int(N) * 4,
         "truncated_classes": int((cand_info[0] > k).sum()),
+        "sel_cache_hits": int(cache_hits),
         "select_path": "host",
     }
     return CandidateSet(task_cand, cand_idx, cand_static, cand_info, stats)

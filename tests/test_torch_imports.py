@@ -1,5 +1,6 @@
-"""The port stands alone: it imports neither JAX nor the JAX package,
-and its entry points run on CUDA unless the CPU is asked for."""
+"""The port stands alone: it imports neither JAX nor the JAX package
+(nor PyYAML, which the card's machine may lack), and its entry points
+run on CUDA unless the CPU is asked for."""
 
 import os
 import pathlib
@@ -28,7 +29,8 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith(("jax.", "jaxlib"))
-             or n == "kube_batch_tpu" or n.startswith("kube_batch_tpu."))
+             or n == "kube_batch_tpu" or n.startswith("kube_batch_tpu.")
+             or n == "yaml" or n.startswith("yaml."))
 print("LOADED", len([n for n in sys.modules
                      if n.startswith("kube_batch_tpu_torch")]))
 print("BAD", bad)
