@@ -39,8 +39,9 @@ phase fails. Phases:
    the previous cycle's first 1 % of placements bound through
    ``cache.bind``, 1 % of nodes updated; the pack must patch in place
    and equal a cold pack, the solve the CPU's. Warm medians of 3 for
-   the snapshot, ``open_session``, ``tensorize`` (host), the pack (full
-   and patched), the solve and the validation.
+   the snapshot, ``open_session``, ``tensorize`` (host; the candidate
+   selection within it), the pack (full and patched), the solve and
+   the validation.
 
 Each phase sets the kernels' launch counters to 0 just before it drives
 the path and reads them just after (phase 7: around each cycle, from
@@ -70,6 +71,7 @@ from kube_batch_tpu_torch.solver import bid_kernels as BK
 from kube_batch_tpu_torch.solver import device_cache as DC
 from kube_batch_tpu_torch.solver import kernels as K
 from kube_batch_tpu_torch.solver import snapshot as S
+from kube_batch_tpu_torch.solver import topk as TK
 from kube_batch_tpu_torch.solver.masks import CombinedMask
 from kube_batch_tpu_torch.solver.snapshot import pack_inputs
 from kube_batch_tpu_torch.solver.topk import select_candidates, topk_config
@@ -631,8 +633,9 @@ def sass_dense_loop(lib_path):
 class CycleClock:
     """Host clocks around the cycle's layers, each read after a
     synchronize where it brackets device work: the cache snapshot
-    (inside ``open_session``) and the device pack (inside
-    ``tensorize``) are timed by wrapping them for the clock's lifetime."""
+    (inside ``open_session``), the candidate selection and the device
+    pack (inside ``tensorize``) are timed by wrapping them for the
+    clock's lifetime."""
 
     def __init__(self, cache):
         self.cache = cache
@@ -649,6 +652,14 @@ class CycleClock:
             clock.ms["snapshot_ms"] = (time.perf_counter() - t0) * 1e3
             return out
 
+        orig_select = TK.select_candidates
+
+        def select(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = orig_select(*args, **kwargs)
+            clock.ms["select_ms"] = (time.perf_counter() - t0) * 1e3
+            return out
+
         def pack(dc, arrays):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -657,14 +668,15 @@ class CycleClock:
             clock.ms["pack_ms"] = (time.perf_counter() - t0) * 1e3
             return out
 
-        self._orig_pack = orig_pack
+        self._orig = (orig_pack, orig_select)
         self.cache.snapshot = snapshot
         DC.DeviceSnapshotCache.pack = pack
+        TK.select_candidates = select
         return self
 
     def __exit__(self, *exc):
         del self.cache.snapshot
-        DC.DeviceSnapshotCache.pack = self._orig_pack
+        DC.DeviceSnapshotCache.pack, TK.select_candidates = self._orig
         return False
 
 
@@ -750,8 +762,15 @@ def cycle_summary(cyc):
     return out
 
 
-def median_ms(cycles, key):
-    return statistics.median(c["ms"][key] for c in cycles)
+LAYERS = ("snapshot_ms", "open_session_ms", "tensorize_host_ms",
+          "select_ms", "pack_ms", "solve_ms", "validate_ms")
+
+
+def medians(cycles):
+    """Median of each layer's time over ``cycles`` (the layers every
+    cycle ran: selection runs only when the bundle carries slabs)."""
+    return {k: statistics.median(c["ms"][k] for c in cycles)
+            for k in LAYERS if all(k in c["ms"] for c in cycles)}
 
 
 def churn(cache, cyc, rng, cycle):
@@ -827,9 +846,7 @@ def run_cycles(dev):
         rec = {
             "build_cluster_s": build_s, "cpu_solve_s": cpu_s,
             "first": cycle_summary(first),
-            "warm_ms": {k: median_ms(warm, k) for k in (
-                "snapshot_ms", "open_session_ms", "tensorize_host_ms",
-                "pack_ms", "solve_ms", "validate_ms")},
+            "warm_ms": medians(warm),
             "pack_full_ms": statistics.median(fulls),
             "pack_full_bytes": first["pack"]["bytes_shipped"],
         }
@@ -854,10 +871,7 @@ def run_cycles(dev):
                 c["ms"]["pack_ms"] for c in churned)
             rec["pack_patched_bytes"] = statistics.median(
                 c["pack"]["bytes_shipped"] for c in churned)
-            rec["churn_ms"] = {k: statistics.median(
-                c["ms"][k] for c in churned) for k in (
-                "snapshot_ms", "open_session_ms", "tensorize_host_ms",
-                "pack_ms", "solve_ms", "validate_ms")}
+            rec["churn_ms"] = medians(churned)
         cache.shutdown()
         out[name] = rec
         log(f"phase 7: {name}: {json.dumps(rec['warm_ms'])}; pack full "

@@ -22,11 +22,11 @@ from kube_batch_tpu_torch.solver.device_cache import (
     last_pack_stats as port_stats,
 )
 
-from tests.test_torch_snapshot import (  # noqa: F401 (autouse fixture)
-    JAXP,
+from test_torch_snapshot import (  # noqa: F401 (autouse fixture)
     PORT,
     empty_cache,
     host_selection,
+    jax_pkg,
     tiers,
 )
 
@@ -86,23 +86,24 @@ class Pair:
     packs onto ``device``."""
 
     def __init__(self, build, device="cpu"):
-        self.jc, self.pc = build(JAXP), build(PORT)
+        self.jax = jax_pkg()
+        self.jc, self.pc = build(self.jax), build(PORT)
         self.device = device
         device_cache_of(self.pc, device)
 
     def open(self):
-        self.js = JAXP.open_session(self.jc, tiers(JAXP))
+        self.js = self.jax.open_session(self.jc, tiers(self.jax))
         self.ps = PORT.open_session(self.pc, tiers(PORT))
 
     def close(self):
-        JAXP.close_session(self.js)
+        self.jax.close_session(self.js)
         PORT.close_session(self.ps)
 
     def pack(self):
         """Tensorize both; returns (jax inputs, jax ctx, port inputs,
         port ctx), holds the two packs' stats to each other and keeps
         the port's in ``self.stats``."""
-        ji, jctx = JAXP.snapshot.tensorize(self.js)
+        ji, jctx = self.jax.snapshot.tensorize(self.js)
         pi, pctx = PORT.snapshot.tensorize(self.ps)
         assert (ji is None) == (pi is None)
         self.stats = dict(port_stats)
@@ -111,7 +112,7 @@ class Pair:
         return ji, jctx, pi, pctx
 
     def allocate(self, pick):
-        for pkg, ssn, c in ((JAXP, self.js, self.jc),
+        for pkg, ssn, c in ((self.jax, self.js, self.jc),
                             (PORT, self.ps, self.pc)):
             pairs = session_pairs(ssn, pkg)
             ssn.allocate_batch([pairs[i] for i in pick(len(pairs))])
@@ -119,7 +120,7 @@ class Pair:
             assert c.wait_for_bookkeeping()
 
     def step(self, fn):
-        fn(JAXP, self.jc)
+        fn(self.jax, self.jc)
         fn(PORT, self.pc)
 
     def shutdown(self):

@@ -12,6 +12,7 @@ must equal the reference's. The helpers here are shared by
 """
 
 import contextlib
+import functools
 import os
 from types import SimpleNamespace
 
@@ -30,7 +31,10 @@ def host_selection(monkeypatch):
     monkeypatch.setenv("KBT_SELECT_DEVICE", "0")
 
 
-def _jax_pkg():
+@functools.cache
+def jax_pkg():
+    """The JAX package's side, imported at first use (``bench`` and the
+    reference tests' helpers import by the ``tests.`` package path)."""
     import bench
     import kube_batch_tpu.plugins  # noqa: F401 (registers plugins)
     from kube_batch_tpu import api
@@ -65,7 +69,6 @@ def _torch_pkg():
     )
 
 
-JAXP = _jax_pkg()
 PORT = _torch_pkg()
 TIERS_ARGS = (
     ["priority", "gang", "conformance"],
@@ -261,9 +264,9 @@ def assert_ctx_order_equal(want, got, where=""):
 def test_tensorize_bundle_equals_reference(case):
     build, envs = CASES[case]
     with env(**envs):
-        caches = [build(JAXP), build(PORT)]
+        caches = [build(jax_pkg()), build(PORT)]
         (hj, cj, sj), (hp, cp, sp) = [
-            host_snapshot(pkg, c) for pkg, c in zip((JAXP, PORT), caches)
+            host_snapshot(pkg, c) for pkg, c in zip((jax_pkg(), PORT), caches)
         ]
     assert_bundles_equal(hj, hp, case)
     assert_ctx_order_equal(cj, cp, case)
@@ -366,8 +369,8 @@ def test_churn_cycles_equal_reference_and_cold(case):
     build, topk = CHURN_CASES[case]
     rng = np.random.RandomState(23)
     with env(KBT_SOLVER_TOPK=topk):
-        sides = [Churn(JAXP, build), Churn(PORT, build)]
-        hj, cj, _ = host_snapshot(JAXP, sides[0].cache)
+        sides = [Churn(jax_pkg(), build), Churn(PORT, build)]
+        hj, cj, _ = host_snapshot(jax_pkg(), sides[0].cache)
         hp, cp, _ = host_snapshot(PORT, sides[1].cache)
         assert_bundles_equal(hj, hp, "cycle 0")
         saw_incremental = saw_sel_hits = False
@@ -377,7 +380,7 @@ def test_churn_cycles_equal_reference_and_cold(case):
             for side in sides:
                 for e in events:
                     side.step(e)
-            hj, cj, sj = host_snapshot(JAXP, sides[0].cache)
+            hj, cj, sj = host_snapshot(jax_pkg(), sides[0].cache)
             hp, cp, sp = host_snapshot(PORT, sides[1].cache)
             where = f"cycle {cycle}"
             assert_bundles_equal(hj, hp, where)
@@ -453,7 +456,7 @@ def test_selection_cache_slabs_and_hits_equal_reference():
             vers = vers.copy()
             vers[moved] += 1
         fp = (ids, vers, pins)
-        want = _select(JAXP, p, holders["jax"], fp)
+        want = _select(jax_pkg(), p, holders["jax"], fp)
         cached = _select(PORT, p, holders["torch"], fp)
         fresh = _select(PORT, p, None, None)
         for f in ("task_cand", "cand_idx", "cand_static", "cand_info"):
