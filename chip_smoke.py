@@ -41,22 +41,53 @@ phase fails. Phases:
    and equal a cold pack, the solve the CPU's. Warm medians of 3 for
    the snapshot, ``open_session``, ``tensorize`` (host; the candidate
    selection within it), the pack (full and patched), the solve and
-   the validation.
+   the validation. One churn cycle (``PHASE7_CHURN``; three until the
+   scheduler phases joined);
+8. the scheduler loop: ``Scheduler(cache, TPU policy, device="cuda")
+   .run_once()`` (``allocate_tpu``: warm plan, ``tensorize`` with the
+   device pack, the solve on the device worker, the overlap window, the
+   deadline-bounded fetch down the ladder, validation, the grouped
+   apply, the Releasing epilogue, verdicts; then ``backfill``) over
+   bench.py's ``bench_cycle`` cycles: cold, steady, idle and a 1 % gang
+   burst, at 50,000 x 5,000 (``bid_sparse``) and 10,000 x 1,000
+   (``bid_dense``), twice on the card and once on the CPU. Every
+   solving cycle must run on ``torch-cuda`` on one ``ok`` rung
+   (``sparse``, resp. ``dense``) with its kernel launched, no breaker
+   pin, no ladder descent and no rejected placement; the (pod, node)
+   binds must equal the CPU run's. Per cycle the action's phases
+   (``tensorize``, ``solve`` = launch + overlap + block, ``apply``,
+   ``epilogue``, ``verdicts``) and the flight record's (``open``,
+   ``backfill``, ``close``, the whole cycle), the warm outcome and the
+   device pack's outcome;
+9. the ladder on the card at 50,000 x 5,000 through
+   ``containment.set_device_fault_hook``: (a) a raise at the first
+   ``"solve"`` descends ``sparse -> dense`` on the card (``bid_dense``
+   launched) and binds what a clean dense solve binds; (b) a hook that
+   sleeps past a 0.5 s budget ends on the native floor with the breaker
+   open; the abandoned worker ends, the next cycle is pinned to the
+   floor, and after ``reset_breaker()`` the next device pack is a full
+   upload labelled ``solve-abandoned``.
 
 Each phase sets the kernels' launch counters to 0 just before it drives
 the path and reads them just after (phase 7: around each cycle, from
-``open_session`` to the solve). The next-to-last line of standard
-output is the kernels' JSON record, the last ``{"ok": true, ...}``.
+``open_session`` to the solve; phase 8: around each ``run_once``). The
+kernels' ``launches`` in the JSON record are phase 8's first card run
+(the four cycles at the kernel's size). The next-to-last line of
+standard output is the kernels' JSON record, the last
+``{"ok": true, ...}``.
 Details go to ``chiprun_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
 
+import gc
 import json
+import os
 import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -64,10 +95,16 @@ import numpy as np
 import torch
 
 import kube_batch_tpu_torch.plugins  # noqa: F401 (registers the plugins)
+from kube_batch_tpu_torch import metrics
+from kube_batch_tpu_torch.actions import allocate_tpu as ATPU
 from kube_batch_tpu_torch.api import PodPhase, build_resource_list
 from kube_batch_tpu_torch.framework import close_session, open_session
+from kube_batch_tpu_torch.native import greedy as NATIVE
+from kube_batch_tpu_torch.obs import RECORDER
+from kube_batch_tpu_torch.scheduler import Scheduler
 from kube_batch_tpu_torch.solver import _build
 from kube_batch_tpu_torch.solver import bid_kernels as BK
+from kube_batch_tpu_torch.solver import containment
 from kube_batch_tpu_torch.solver import device_cache as DC
 from kube_batch_tpu_torch.solver import kernels as K
 from kube_batch_tpu_torch.solver import snapshot as S
@@ -78,6 +115,7 @@ from kube_batch_tpu_torch.solver.topk import select_candidates, topk_config
 from kube_batch_tpu_torch.solver.validate import validate_placements
 from kube_batch_tpu_torch.utils.test_utils import (
     DEFAULT_TIERS_ARGS,
+    add_gang_burst,
     build_cluster,
     build_node,
     build_pod,
@@ -819,8 +857,14 @@ CYCLES = (
 )
 
 
+# Churn cycles of phase 7 (three before the scheduler phases joined;
+# one since, to keep the script inside half its time limit: each churn
+# cycle also solves on the CPU, ~40-50 s at 50k x 5k).
+PHASE7_CHURN = 1
+
+
 def run_cycles(dev):
-    """Phase 7: (a) 50k×5k, (c) three churn cycles on it, (b) 10k×1k."""
+    """Phase 7: (a) 50k×5k, (c) churn cycles on it, (b) 10k×1k."""
     tiers = make_tiers(*DEFAULT_TIERS_ARGS)
     out = {}
     n_fields = len(K.PackedInputs._fields)
@@ -853,7 +897,7 @@ def run_cycles(dev):
         if kernel == "bid_sparse":
             rng = np.random.RandomState(1)
             prev, churned = first, []
-            for c in range(3):
+            for c in range(PHASE7_CHURN):
                 events = churn(cache, prev, rng, c)
                 cyc = drive_cycle(cache, tiers)
                 cw = f"{what} churn {c}"
@@ -885,6 +929,330 @@ def run_cycles(dev):
     return out
 
 
+# -- phases 8 and 9: the scheduler loop -----------------------------------------
+
+TPU_CONF = "config/tpu-batch-conf-tpu.yaml"
+
+# Phase 8's clusters, bench.py's ``large`` and ``medium``: (name,
+# build_cluster arguments, kernel of the path, the rung every solving
+# cycle must take).
+SCHED_CLUSTERS = (
+    ("large_50k_5k", (50_000, 5_000, 5, 500), "bid_sparse", "sparse"),
+    ("medium_10k_1k", (10_000, 1_000, 4, 100), "bid_dense", "dense"),
+)
+SCHED_CYCLES = ("cold", "steady", "idle", "delta")
+# last_stats keys printed per cycle (the solve split into its launch,
+# overlap window and block point).
+STAT_PHASES = ("tensorize_ms", "solve_ms", "solve_launch_ms", "overlap_ms",
+               "solve_block_ms", "apply_ms", "epilogue_ms", "verdicts_ms")
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+class LoopClock:
+    """Time spent around one ``run_once`` outside its actions: garbage
+    collection pauses (``gc.callbacks``; the loop defers collection
+    during the cycle and collects the young generations when it ends),
+    and the quality scorecard and telemetry feeds that follow the
+    cycle's flight record."""
+
+    def __init__(self):
+        self.ms = {"gc_ms": 0.0, "quality_ms": 0.0, "telemetry_ms": 0.0}
+        self._gc_t0 = None
+
+    def _gc(self, phase, info):
+        if phase == "start":
+            self._gc_t0 = time.perf_counter()
+        elif self._gc_t0 is not None:
+            self.ms["gc_ms"] += (time.perf_counter() - self._gc_t0) * 1e3
+            self._gc_t0 = None
+
+    def _timed(self, key, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                self.ms[key] += (time.perf_counter() - t0) * 1e3
+        return run
+
+    def __enter__(self):
+        from kube_batch_tpu_torch.obs import QUALITY, TELEMETRY
+
+        gc.callbacks.append(self._gc)
+        self._feeds = ((QUALITY, "annotate_cycle", "quality_ms"),
+                       (TELEMETRY, "observe_scheduler_cycle", "telemetry_ms"))
+        for obj, name, key in self._feeds:
+            setattr(obj, name, self._timed(key, getattr(obj, name)))
+        return self
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._gc)
+        for obj, name, _ in self._feeds:
+            delattr(obj, name)
+
+
+def scheduler_cycle(sched, dev):
+    """One ``Scheduler.run_once`` with the launch counters zeroed just
+    before and read just after; the binder is drained afterwards,
+    outside the timed region."""
+    BK.bid_dense.launches = 0
+    BK.bid_sparse.launches = 0
+    fallbacks = metrics.metrics.solver_fallback.total()
+    _sync(dev)
+    with LoopClock() as loop:
+        t0 = time.perf_counter()
+        sched.run_once()
+        _sync(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = {"bid_dense": BK.bid_dense.launches,
+                "bid_sparse": BK.bid_sparse.launches}
+    stats = dict(ATPU.last_stats)
+    rec = RECORDER.snapshot()[-1]
+    check(sched.cache.wait_for_side_effects(timeout=600.0),
+          "phase 8: binds did not drain")
+    ph = rec.get("phases_ms", {})
+    times = {"open_ms": ph.get("open_session"),
+             "allocate_tpu_ms": ph.get("action:allocate_tpu"),
+             "backfill_ms": ph.get("action:backfill"),
+             "close_ms": ph.get("close_session"),
+             "cycle_ms": rec.get("e2e_ms"), "wall_ms": wall_ms}
+    times.update(loop.ms)
+    times.update({k: stats[k] for k in STAT_PHASES if k in stats})
+    return {
+        "stats": stats, "launches": launches, "ms": times,
+        "new_fallbacks": metrics.metrics.solver_fallback.total() - fallbacks,
+        "warm": stats.get("warm_outcome"),
+        "pack": {k[len("device_"):]: v for k, v in stats.items()
+                 if k.startswith("device_")},
+    }
+
+
+def check_healthy(cyc, kernel, rung, backend, what):
+    """A solving cycle ran on ``backend`` on one ``ok`` rung, launched
+    ``kernel`` (on the card), and neither the ladder nor the breaker
+    engaged; a cycle that solved nothing engaged neither either."""
+    st = cyc["stats"]
+    check(not st.get("breaker_pinned"), f"{what}: breaker pinned")
+    check(cyc["new_fallbacks"] == 0, f"{what}: the ladder descended")
+    check("validation_rejected" not in st, f"{what}: validation rejected")
+    if "backend" not in st:
+        return False
+    check(st["backend"] == backend,
+          f"{what}: solved on {st['backend']}, not {backend}")
+    check(st["solve_ladder"] == [{"rung": rung, "outcome": "ok"}],
+          f"{what}: ladder {st['solve_ladder']}")
+    if backend == "torch-cuda":
+        check(cyc["launches"][kernel] > 0, f"{what}: {kernel} not launched")
+    return True
+
+
+def run_scheduler(shape, dev, kernel, rung, what):
+    """bench_cycle's four cycles through ``Scheduler.run_once`` with the
+    TPU policy on a fresh seeded cluster; returns the per-cycle records
+    and the final (pod, node) binds."""
+    n_tasks, _, n_queues, n_groups = shape
+    cache = build_cluster(*shape, seed=0)
+    sched = Scheduler(cache, TPU_CONF, device=dev)
+    if dev.type == "cpu":
+        # The CPU solve at 50k x 5k takes tens of seconds: widen the
+        # fetch deadline so the comparison run never descends the ladder.
+        containment.configure(solve_budget=3600.0)
+    backend = f"torch-{dev.type}"
+    rng = np.random.RandomState(1)  # bench_cycle: seed + 1
+    cycles = {}
+    try:
+        for name in SCHED_CYCLES:
+            if name == "delta":
+                add_gang_burst(cache, rng, "pgd", max(1, n_groups // 100),
+                               n_tasks // n_groups, n_queues)
+            cyc = scheduler_cycle(sched, dev)
+            cyc["solved"] = check_healthy(cyc, kernel, rung, backend,
+                                          f"{what} {name}")
+            cycles[name] = cyc
+        binds = dict(cache.binder.binds)
+    finally:
+        containment.configure(None)
+        cache.shutdown()
+    check(cycles["cold"]["solved"] and cycles["delta"]["solved"],
+          f"{what}: the cold and delta cycles must solve")
+    return cycles, binds
+
+
+def cycle_line(cyc):
+    ms = {k: (round(v, 3) if isinstance(v, float) else v)
+          for k, v in cyc["ms"].items()}
+    st = cyc["stats"]
+    return {"warm": cyc["warm"], "backend": st.get("backend"),
+            "rounds": st.get("rounds"), "placed": st.get("placed"),
+            "launches": cyc["launches"], "ms": ms,
+            "pack": {k: cyc["pack"].get(k) for k in (
+                "reuses", "patches", "uploads", "bytes_shipped")}}
+
+
+def run_phase8(dev):
+    """Phase 8: the scheduler loop at 50k x 5k and 10k x 1k, on the card
+    twice and on the CPU once; binds must match the CPU's."""
+    out = {}
+    cpu = torch.device("cpu")
+    for name, shape, kernel, rung in SCHED_CLUSTERS:
+        rec = {}
+        for run in ("card_1", "card_2"):
+            t0 = time.perf_counter()
+            cycles, binds = run_scheduler(shape, dev, kernel, rung,
+                                          f"phase 8 {name} {run}")
+            rec[run] = {c: cycle_line(cyc) for c, cyc in cycles.items()}
+            rec[run]["seconds"] = time.perf_counter() - t0
+            rec[run]["binds"] = len(binds)
+            for c, cyc in cycles.items():
+                log(f"phase 8: {name} {run} {c}: "
+                    f"{json.dumps(rec[run][c])}")
+            if run == "card_1":
+                card_binds = binds
+            else:
+                check(binds == card_binds,
+                      f"phase 8 {name}: two card runs bound differently")
+        t0 = time.perf_counter()
+        cycles, cpu_binds = run_scheduler(shape, cpu, kernel, rung,
+                                          f"phase 8 {name} cpu")
+        rec["cpu_seconds"] = time.perf_counter() - t0
+        check(card_binds == cpu_binds,
+              f"phase 8 {name}: the card bound {len(card_binds)} pods, the "
+              f"CPU {len(cpu_binds)}; the (pod, node) sets differ")
+        check(len(card_binds) > 0, f"phase 8 {name}: nothing bound")
+        rec["launches"] = {
+            k: sum(rec["card_1"][c]["launches"][k] for c in SCHED_CYCLES)
+            for k in ("bid_dense", "bid_sparse")}
+        log(f"phase 8: {name}: {len(card_binds)} binds, card = CPU "
+            f"(CPU run {rec['cpu_seconds']:.1f} s); launches over the "
+            f"four cycles {rec['launches']}")
+        out[name] = rec
+    return out
+
+
+def run_phase9(dev):
+    """Phase 9: the ladder on the card at 50k x 5k through the device
+    fault hook."""
+    shape = SCHED_CLUSTERS[0][1]
+    out = {}
+
+    # (a) sparse raises once -> dense on the card; the same binds as a
+    # clean dense solve (slabs off).
+    calls = []
+
+    def raise_once(stage):
+        if stage == "solve" and not calls:
+            calls.append(stage)
+            raise RuntimeError("injected device fault")
+
+    containment.reset_breaker()
+    cache = build_cluster(*shape, seed=0)
+    sched = Scheduler(cache, TPU_CONF, device=dev)
+    containment.set_device_fault_hook(raise_once)
+    try:
+        cyc = scheduler_cycle(sched, dev)
+    finally:
+        containment.set_device_fault_hook(None)
+    st = cyc["stats"]
+    ladder = [(e["rung"], e["outcome"]) for e in st["solve_ladder"]]
+    check(ladder == [("sparse", "exception"), ("dense", "ok")],
+          f"phase 9a: ladder {ladder}")
+    backend = f"torch-{dev.type}"
+    check(st["backend"] == backend, f"phase 9a: {st['backend']}")
+    check(dev.type != "cuda" or cyc["launches"]["bid_dense"] > 0,
+          "phase 9a: bid_dense idle")
+    descended = dict(cache.binder.binds)
+    cache.shutdown()
+    containment.reset_breaker()
+    saved = os.environ.get("KBT_SOLVER_TOPK")
+    os.environ["KBT_SOLVER_TOPK"] = "off"
+    try:
+        cache = build_cluster(*shape, seed=0)
+        clean = scheduler_cycle(Scheduler(cache, TPU_CONF, device=dev), dev)
+        check_healthy(clean, "bid_dense", "dense", backend,
+                      "phase 9a clean dense")
+        clean_binds = dict(cache.binder.binds)
+        cache.shutdown()
+    finally:
+        if saved is None:
+            os.environ.pop("KBT_SOLVER_TOPK", None)
+        else:
+            os.environ["KBT_SOLVER_TOPK"] = saved
+    check(descended == clean_binds,
+          "phase 9a: the descended dense solve bound other pods than a "
+          "clean dense solve")
+    out["a"] = {"ladder": st["solve_ladder"], "binds": len(descended),
+                "descended": cycle_line(cyc), "clean": cycle_line(clean)}
+    log(f"phase 9a: sparse -> dense on the card, {len(descended)} binds "
+        f"= a clean dense solve; {json.dumps(out['a']['descended'])}")
+
+    # (b) a hang past a 0.5 s budget -> native floor, breaker open; the
+    # abandoned worker ends and the next device pack is a labelled full
+    # upload into fresh buffers.
+    containment.reset_breaker()
+    cache = build_cluster(*shape, seed=0)
+    sched = Scheduler(cache, TPU_CONF, device=dev)
+    containment.configure(solve_budget=0.5)
+    hung = []
+
+    def hang(stage):
+        if stage == "solve":
+            hung.append(threading.current_thread())
+            time.sleep(3.0)
+
+    containment.set_device_fault_hook(hang)
+    try:
+        cyc = scheduler_cycle(sched, dev)
+    finally:
+        containment.set_device_fault_hook(None)
+    st = cyc["stats"]
+    ladder = [(e["rung"], e["outcome"]) for e in st["solve_ladder"]]
+    check(ladder == [("sparse", "timeout"), ("native", "ok")],
+          f"phase 9b: ladder {ladder}")
+    check(st["backend"] == "native", f"phase 9b: {st['backend']}")
+    check(containment.BREAKER.state == "open", "phase 9b: breaker closed")
+    dc = DC.device_cache_of(cache)
+    check(not dc.dev and dc.drop_reason == "solve-abandoned",
+          "phase 9b: the resident pack was not dropped")
+    # The abandoned worker finishes its rounds, then enters the hook
+    # (at the device->host read) and sleeps; wait for it to end.
+    deadline = time.perf_counter() + 300.0
+    while not hung and time.perf_counter() < deadline:
+        time.sleep(0.05)
+    check(len(hung) == 1, "phase 9b: the hook did not run once")
+    hung[0].join(timeout=60.0)
+    check(not hung[0].is_alive(), "phase 9b: the abandoned worker lives on")
+    placed_native = len(cache.binder.binds)
+    # Breaker open: the next cycle is pinned to the native floor.
+    add_gang_burst(cache, np.random.RandomState(1), "pgx", 5, 100, 5)
+    pinned = scheduler_cycle(sched, dev)
+    check(pinned["stats"].get("breaker_pinned") is True,
+          "phase 9b: the open breaker did not pin the next cycle")
+    containment.reset_breaker()
+    containment.configure(None)
+    add_gang_burst(cache, np.random.RandomState(2), "pgy", 5, 100, 5)
+    after = scheduler_cycle(sched, dev)
+    check_healthy(after, "bid_sparse", "sparse", backend,
+                  "phase 9b after reset")
+    reasons = after["stats"].get("device_full_reasons") or {}
+    check(reasons and set(reasons.values()) == {"solve-abandoned"}
+          and after["pack"]["uploads"] == len(K.PackedInputs._fields),
+          f"phase 9b: the next pack was not a labelled full upload: "
+          f"{reasons}")
+    cache.shutdown()
+    out["b"] = {"ladder": st["solve_ladder"], "placed": placed_native,
+                "breaker": "open", "timed_out": cycle_line(cyc),
+                "pinned": cycle_line(pinned), "after": cycle_line(after)}
+    log(f"phase 9b: timeout -> native ({placed_native} binds), breaker "
+        f"open, worker ended; next pack: {after['pack']['uploads']} "
+        f"uploads, reasons {sorted(set(reasons.values()))}; "
+        f"{json.dumps(out['b']['timed_out'])}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -898,6 +1266,10 @@ def main() -> int:
 
     # -- phase 1: build and report ---------------------------------------
     t0 = time.perf_counter()
+    # The native floor (phase 9's last rung) builds with g++ while nvcc
+    # builds the kernels.
+    native = threading.Thread(target=NATIVE.native_available)
+    native.start()
     build = _build.build()
     report["build"] = {k: build[k] for k in ("path", "built", "seconds")}
     ptxas = build["log"] or (Path(build["path"]).parent
@@ -922,6 +1294,8 @@ def main() -> int:
             f"{info['spill_bytes']} bytes spilled")
     report["sass"] = sass_dense_loop(build["path"])
     log(f"phase 1: dense group loop (SASS): {report['sass']}")
+    native.join()
+    check(NATIVE.native_available(), "the native floor did not build")
 
     # -- snapshots -----------------------------------------------------------
     check(topk_config(50_000, 5_000).enabled, "topk policy off at 50k x 5k")
@@ -1050,6 +1424,19 @@ def main() -> int:
 
     # -- phase 7: the cycle ---------------------------------------------------
     report["cycle"] = run_cycles(dev)
+
+    # -- phase 8: the scheduler loop ------------------------------------------
+    report["scheduler"] = run_phase8(dev)
+    # The main path's launches: bench_cycle's four cycles on the card,
+    # bid_sparse at 50k x 5k and bid_dense at 10k x 1k.
+    for rec in records:
+        size = "large_50k_5k" if rec["name"] == "bid_sparse" else (
+            "medium_10k_1k")
+        rec["launches"] = report["scheduler"][size]["launches"][rec["name"]]
+        check(rec["launches"] > 0, f"phase 8: {rec['name']} never launched")
+
+    # -- phase 9: the ladder on the card ---------------------------------------
+    report["ladder"] = run_phase9(dev)
     report["seconds"] = time.perf_counter() - t0
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     log(f"all phases passed in {report['seconds']:.1f} s")

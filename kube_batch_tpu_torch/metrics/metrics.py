@@ -285,7 +285,7 @@ solver_iterations = REGISTRY.register(
 solver_backend_cycles = REGISTRY.register(
     Counter(
         "solver_backend_cycles",
-        "Cycles solved per backend (jax device vs native CPU fallback)",
+        "Cycles solved per backend (torch device vs native CPU fallback)",
     ),
     ("backend",),
 )
@@ -623,11 +623,11 @@ pod_placement_latency = REGISTRY.register(
 process_rss_bytes = REGISTRY.register(
     Gauge("process_rss_bytes", "Scheduler process resident set size")
 )
-jax_device_memory_bytes = REGISTRY.register(
+cuda_memory_allocated_bytes = REGISTRY.register(
     Gauge(
-        "jax_device_memory_bytes",
-        "Live device memory across local jax devices (0 when the "
-        "backend exposes no memory_stats, e.g. CPU)",
+        "cuda_memory_allocated_bytes",
+        "CUDA memory held by live tensors (torch.cuda.memory_allocated; "
+        "0 until CUDA is initialised)",
     )
 )
 metrics_label_series = REGISTRY.register(
@@ -809,7 +809,7 @@ def forget_job(job_id: str) -> None:
 
 def update_solver_cycle(rounds: int, backend: str) -> None:
     """Record one allocate_tpu cycle: rounds used and which backend
-    solved it ("jax-<platform>" or "native")."""
+    solved it ("torch-cuda", "torch-cpu" or "native")."""
     solver_iterations.set(rounds)
     solver_backend_cycles.inc((backend,))
 
@@ -964,8 +964,8 @@ def update_telemetry_watermarks(
     rss = values.get("rss_bytes")
     if rss is not None:
         process_rss_bytes.set(float(rss))
-    jax_device_memory_bytes.set(
-        float(values.get("jax_device_memory_bytes", 0.0))
+    cuda_memory_allocated_bytes.set(
+        float(values.get("cuda_memory_allocated_bytes", 0.0))
     )
     series = values.get("metrics_series")
     if series is not None:

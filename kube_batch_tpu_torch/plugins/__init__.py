@@ -1,8 +1,7 @@
 """Plugins (mirrors reference pkg/scheduler/plugins).
 
 Importing this package registers every builtin plugin with the framework
-registry (the reference's factory.go:31-41 / init() pattern). The
-``serving`` plugin is not ported yet."""
+registry (the reference's factory.go:31-41 / init() pattern)."""
 
 from . import (  # noqa: F401
     conformance,
@@ -12,5 +11,6 @@ from . import (  # noqa: F401
     predicates,
     priority,
     proportion,
+    serving,
 )
 from .util import PredicateError, SessionPodLister

@@ -2,12 +2,18 @@
 feeds it: ``tensorize`` turns an open session into the solver bundle and
 packs it through the device-resident cache (``device_cache``);
 ``solve_auto`` solves it (``kernels``, with the hand-written bid kernels
-in ``bid_kernels``); ``validate_placements`` checks the result."""
+in ``bid_kernels``), dispatched by ``solve_sharded`` (one device);
+``validate_placements`` checks the result. The action's fault
+containment (``containment``) and warm-start plan (``warm``) live here
+too."""
 
+from .device_cache import DeviceSnapshotCache, device_cache_of
 from .kernels import (
     PackedInputs,
     SolverInputs,
     SolverResult,
+    jit_compilation_count,
+    make_inputs,
     solve,
     solve_auto,
     solve_sparse,
@@ -21,20 +27,26 @@ from .snapshot import (
     stack_inputs,
     tensorize,
 )
+from .sharding import solve_sharded
 from .topk import select_candidates, topk_config
 from .validate import validate_placements
 
 __all__ = [
+    "DeviceSnapshotCache",
     "PackedInputs",
     "ResourceLayout",
     "SnapshotContext",
     "SolverInputs",
     "SolverResult",
+    "device_cache_of",
+    "jit_compilation_count",
     "last_tensorize_stats",
+    "make_inputs",
     "pack_inputs",
     "select_candidates",
     "solve",
     "solve_auto",
+    "solve_sharded",
     "solve_sparse",
     "solve_staged",
     "stack_inputs",

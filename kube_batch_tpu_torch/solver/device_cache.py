@@ -106,7 +106,7 @@ class DeviceSnapshotCache:
     attribute), giving it exactly the lifetime of the mirror it
     shadows — same pattern as ``snapshot._TensorizeCache``."""
 
-    __slots__ = ("device", "host", "dev")
+    __slots__ = ("device", "host", "dev", "drop_reason")
 
     def __init__(self, device=None):
         self.device = resolve_device(device)
@@ -114,11 +114,18 @@ class DeviceSnapshotCache:
         self.host: Dict[str, np.ndarray] = {}
         # field -> resident torch buffer on ``self.device``
         self.dev: Dict[str, torch.Tensor] = {}
+        # Label of the next pack's uploads after a drop (None: "cold").
+        self.drop_reason: Optional[str] = None
 
-    def drop(self) -> None:
-        """Release every resident buffer (shutdown / tests)."""
+    def drop(self, reason: Optional[str] = None) -> None:
+        """Release every resident buffer (shutdown, tests, and an
+        abandoned solve). ``reason`` labels the next pack's uploads in
+        ``full_reasons``. A holder of the old buffers (an abandoned solve
+        still running rounds) keeps them alive; the next pack writes
+        only fresh buffers, so the two never share storage."""
         self.host.clear()
         self.dev.clear()
+        self.drop_reason = reason
 
     # ------------------------------------------------------------------
 
@@ -193,7 +200,7 @@ class DeviceSnapshotCache:
         cached = self.host.get(name)
         dev = self.dev.get(name)
         if cached is None or dev is None:
-            return self._upload(name, arr, "cold", stats)
+            return self._upload(name, arr, self.drop_reason or "cold", stats)
         if cached.shape != arr.shape or cached.dtype != arr.dtype:
             return self._upload(name, arr, "shape-change", stats)
         rows, nrows = self._diff_rows(name, arr, cached)
@@ -239,6 +246,7 @@ class DeviceSnapshotCache:
                     stats["bytes_shipped"] - shipped_before
                 )
 
+        self.drop_reason = None
         last_pack_stats.clear()
         last_pack_stats.update(stats)
         try:

@@ -1031,3 +1031,15 @@ def solve_auto(inputs, max_rounds: int = 256,
         return solve_sparse(inputs, max_rounds=max_rounds,
                             use_kernel=use_kernel)
     return _dense_auto(inputs, max_rounds, use_kernel)
+
+
+def jit_compilation_count() -> int:
+    """Counterpart of the reference's compiled-variant census: the
+    number of bid-kernel libraries this process has built or loaded
+    (``_build.load_library``: 0 before the first launch on a card, 1
+    after). The port's solve runs eager torch ops with no per-shape
+    compilation, so this census, like the reference's, must stay flat
+    across steady cycles; growth would mean a library built per cycle."""
+    from . import _build
+
+    return len(_build._loaded)

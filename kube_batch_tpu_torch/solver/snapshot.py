@@ -668,8 +668,8 @@ def _store_refresh_stats(ssn, n_nodes: int, refreshed) -> None:
 
 
 def _absorb_dirty(ssn) -> None:
-    """Cache-maintenance half of a cycle that solves nothing (idle):
-    patch the node arrays and predicate columns against
+    """Cache-maintenance half of a cycle that solves nothing (idle, or
+    a warm no-op): patch the node arrays and predicate columns against
     the churn ledger so the NEXT real solve starts from a clean cache.
     A truly quiet cycle (empty ledger, narrow included) is a no-op."""
     if not (
@@ -725,6 +725,7 @@ def tensorize(
     include_jobs: Optional[List[JobInfo]] = None,
     pad=True,
     device=True,
+    warm_noop=False,
     rank_pool: Optional[List[JobInfo]] = None,
 ):
     """Build `(inputs, SnapshotContext)` for the session's pending,
@@ -745,13 +746,22 @@ def tensorize(
     long-running scheduler re-jits only when the cluster crosses a bucket
     boundary, not on every snapshot.
 
-    With ``device`` (default), ``inputs`` is a :class:`PackedInputs` of
-    stacked torch buffers, resident on the scheduler cache's device
-    cache (``device_cache.device_cache_of``: ``cuda`` unless the cache
-    was created for ``"cpu"``), valid until the next pack on the same
-    scheduler cache. With ``device=False`` the pack is skipped and
-    ``inputs`` is the NumPy-backed :class:`SolverInputs` (also always
-    available as ``ctx.host_inputs``).
+    With ``device`` (default True), ``inputs`` is a :class:`PackedInputs`
+    of stacked torch buffers, resident on the scheduler cache's device
+    cache (``device_cache.device_cache_of``), valid until the next pack
+    on the same scheduler cache. ``device`` may name the device (``"cuda"``,
+    ``"cpu"`` or a ``torch.device``): the device cache is created there
+    on first use, and naming another device than the cache's raises.
+    ``True`` takes the cache's device (``cuda`` for a new cache). With
+    ``device=False`` the pack is skipped and ``inputs`` is the
+    NumPy-backed :class:`SolverInputs` (also always available as
+    ``ctx.host_inputs``).
+
+    ``warm_noop`` (solver/warm.py): the warm plan proved every pending
+    task keeps last cycle's verdict, so only the cycle's cache
+    maintenance runs — node-array/predicate-column patching against the
+    ledger — and ``(None, None)`` is returned without touching the task
+    side.
 
     INCREMENTAL: the node-side columnar arrays and the resource layout's
     per-job scalar scan live across cycles in a fingerprint-keyed cache
@@ -766,6 +776,10 @@ def tensorize(
     from .masks import combine_masks, combine_score_rows
 
     last_tensorize_stats.clear()
+    if warm_noop:
+        _absorb_dirty(ssn)
+        last_tensorize_stats["warm_noop"] = True
+        return None, None
     if rank_pool is not None:
         job_pool = rank_pool
     elif include_jobs is not None:
@@ -1230,10 +1244,11 @@ def tensorize(
     from .device_cache import device_cache_of
 
     stacked = stack_inputs(host_inputs)
-    dc = device_cache_of(ssn.cache)
+    named = None if device is True else device
+    dc = device_cache_of(ssn.cache, named)
     if dc is not None:
         return dc.pack(stacked), ctx
-    return _to_device(stacked, resolve_device(None)), ctx
+    return _to_device(stacked, resolve_device(named)), ctx
 
 
 def _field(host, name):

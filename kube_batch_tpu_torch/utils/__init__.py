@@ -1,1 +1,2 @@
 from .gc_guard import deferred_gc
+from .priority_queue import PriorityQueue

@@ -231,3 +231,28 @@ def build_cluster(n_tasks, n_nodes, n_queues, n_groups, seed=0):
             ))
             t += 1
     return cache
+
+
+def add_gang_burst(cache, rng, prefix, groups, per_group, n_queues):
+    """The delta burst of the reference's ``bench.py::bench_cycle``:
+    ``groups`` new gangs of ``per_group`` pending pods each, min-member
+    and requests drawn from ``rng`` in the benchmark's order."""
+    from ..api import PodPhase, build_resource_list
+
+    for g in range(groups):
+        name = f"{prefix}{g}"
+        cache.add_pod_group(build_pod_group(
+            name, namespace="bench",
+            min_member=int(rng.randint(1, per_group + 1)),
+            queue=f"q{g % n_queues}",
+        ))
+        for i in range(per_group):
+            cache.add_pod(build_pod(
+                "bench", f"{name}-p{i}", "", PodPhase.PENDING,
+                build_resource_list(
+                    cpu=f"{int(rng.choice([250, 500, 1000, 2000, 4000]))}m",
+                    memory=f"{int(rng.choice([256, 512, 1024, 4096, 8192]))}Mi",
+                ),
+                group_name=name,
+            ))
+
