@@ -64,9 +64,12 @@ phase fails. Phases:
    ``"solve"`` descends ``sparse -> dense`` on the card (``bid_dense``
    launched) and binds what a clean dense solve binds; (b) a hook that
    sleeps past a 0.5 s budget ends on the native floor with the breaker
-   open; the abandoned worker ends, the next cycle is pinned to the
-   floor, and after ``reset_breaker()`` the next device pack is a full
-   upload labelled ``solve-abandoned``.
+   open; the next cycle is pinned to the floor, and after
+   ``reset_breaker()`` the next device pack is a full upload labelled
+   ``solve-abandoned``. Run twice: once with the abandoned worker
+   joined before the next cycle, once with it held mid-rounds until
+   that cycle has packed and launched, so both solves issue rounds at
+   once; the binds after every cycle must be the same in both runs.
 
 Each phase sets the kernels' launch counters to 0 just before it drives
 the path and reads them just after (phase 7: around each cycle, from
@@ -80,6 +83,7 @@ Details go to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import os
@@ -1079,6 +1083,11 @@ def run_scheduler(shape, dev, kernel, rung, what):
         cache.shutdown()
     check(cycles["cold"]["solved"] and cycles["delta"]["solved"],
           f"{what}: the cold and delta cycles must solve")
+    # The compiled-variant census (builds of the bid library) is flat.
+    census = {c["stats"]["jit_variants"] for c in cycles.values()
+              if "jit_variants" in c["stats"]}
+    check(len(census) == 1 and (dev.type == "cpu" or min(census) >= 1),
+          f"{what}: the bid-library census moved across cycles: {census}")
     return cycles, binds
 
 
@@ -1190,10 +1199,81 @@ def run_phase9(dev):
         f"= a clean dense solve; {json.dumps(out['a']['descended'])}")
 
     # (b) a hang past a 0.5 s budget -> native floor, breaker open; the
-    # abandoned worker ends and the next device pack is a labelled full
-    # upload into fresh buffers.
+    # next device pack is a labelled full upload into fresh buffers,
+    # with the abandoned solve joined first, then with it still issuing
+    # rounds beside the next cycle's solve.
+    joined = timeout_sequence(dev, overlap=False)
+    overlapped = timeout_sequence(dev, overlap=True)
+    check(overlapped["binds"] == joined["binds"],
+          "phase 9b: the cycles beside the abandoned solve bound other pods "
+          "than the cycles after it ended")
+    out["b"] = {"joined": joined["record"], "overlapped": overlapped["record"]}
+    log(f"phase 9b: timeout -> native, breaker open; binds per cycle "
+        f"{[len(b) for b in joined['binds']]} with the abandoned solve "
+        f"joined = with it overlapping the next cycle; "
+        f"{json.dumps(out['b']['overlapped'])}")
+    return out
+
+
+class HeldSolve:
+    """Stands in for ``_build.load_library`` while one 9b run lasts. The
+    first thread that launches ``bid_sparse`` (the solve the cycle will
+    abandon) is held before its second launch until another thread
+    launches ``bid_sparse`` (the next device cycle, after its pack);
+    then it runs its remaining rounds beside that cycle's solve. The
+    launches themselves, and their counts, are unchanged."""
+
+    def __init__(self):
+        self._load = _build.load_library
+        self.first = None
+        self.first_launches = 0
+        self.late_launches = 0
+        self.held = threading.Event()
+        self.released = threading.Event()
+
+    def __enter__(self):
+        _build.load_library = lambda: self
+        return self
+
+    def __exit__(self, *exc):
+        self.released.set()
+        _build.load_library = self._load
+
+    def __getattr__(self, name):
+        fn = getattr(self._load(), name)
+        if name != "kbt_bid_sparse":
+            return fn
+
+        def launch(*args):
+            me = threading.current_thread()
+            if self.first is None:
+                self.first = me
+            if me is self.first:
+                self.first_launches += 1
+                if self.first_launches == 2:
+                    self.held.set()
+                    self.released.wait(600.0)
+                if self.released.is_set():
+                    self.late_launches += 1
+            else:
+                self.released.set()
+            return fn(*args)
+
+        return launch
+
+
+def timeout_sequence(dev, overlap):
+    """Phase 9b's three cycles at 50k x 5k: the solve outsleeps a 0.5 s
+    budget and the cycle ends on the native floor; a burst is pinned to
+    the floor by the open breaker; after ``reset_breaker()`` a second
+    burst runs on the card. ``overlap`` holds the abandoned solve
+    mid-rounds until that last cycle has packed and launched (else it
+    is joined before the pinned cycle). Returns the binds after each
+    cycle and the record."""
+    what = f"phase 9b ({'overlapped' if overlap else 'joined'})"
+    backend = f"torch-{dev.type}"
     containment.reset_breaker()
-    cache = build_cluster(*shape, seed=0)
+    cache = build_cluster(*SCHED_CLUSTERS[0][1], seed=0)
     sched = Scheduler(cache, TPU_CONF, device=dev)
     containment.configure(solve_budget=0.5)
     hung = []
@@ -1203,54 +1283,75 @@ def run_phase9(dev):
             hung.append(threading.current_thread())
             time.sleep(3.0)
 
-    containment.set_device_fault_hook(hang)
-    try:
-        cyc = scheduler_cycle(sched, dev)
-    finally:
-        containment.set_device_fault_hook(None)
-    st = cyc["stats"]
-    ladder = [(e["rung"], e["outcome"]) for e in st["solve_ladder"]]
-    check(ladder == [("sparse", "timeout"), ("native", "ok")],
-          f"phase 9b: ladder {ladder}")
-    check(st["backend"] == "native", f"phase 9b: {st['backend']}")
-    check(containment.BREAKER.state == "open", "phase 9b: breaker closed")
-    dc = DC.device_cache_of(cache)
-    check(not dc.dev and dc.drop_reason == "solve-abandoned",
-          "phase 9b: the resident pack was not dropped")
-    # The abandoned worker finishes its rounds, then enters the hook
-    # (at the device->host read) and sleeps; wait for it to end.
-    deadline = time.perf_counter() + 300.0
-    while not hung and time.perf_counter() < deadline:
-        time.sleep(0.05)
-    check(len(hung) == 1, "phase 9b: the hook did not run once")
-    hung[0].join(timeout=60.0)
-    check(not hung[0].is_alive(), "phase 9b: the abandoned worker lives on")
-    placed_native = len(cache.binder.binds)
-    # Breaker open: the next cycle is pinned to the native floor.
-    add_gang_burst(cache, np.random.RandomState(1), "pgx", 5, 100, 5)
-    pinned = scheduler_cycle(sched, dev)
-    check(pinned["stats"].get("breaker_pinned") is True,
-          "phase 9b: the open breaker did not pin the next cycle")
-    containment.reset_breaker()
-    containment.configure(None)
-    add_gang_burst(cache, np.random.RandomState(2), "pgy", 5, 100, 5)
-    after = scheduler_cycle(sched, dev)
-    check_healthy(after, "bid_sparse", "sparse", backend,
-                  "phase 9b after reset")
-    reasons = after["stats"].get("device_full_reasons") or {}
-    check(reasons and set(reasons.values()) == {"solve-abandoned"}
-          and after["pack"]["uploads"] == len(K.PackedInputs._fields),
-          f"phase 9b: the next pack was not a labelled full upload: "
-          f"{reasons}")
+    def end_of_worker():
+        # The abandoned worker finishes its rounds, then enters the hook
+        # (at the device->host read) and sleeps; wait for it to end.
+        deadline = time.perf_counter() + 300.0
+        while not hung and time.perf_counter() < deadline:
+            time.sleep(0.05)
+        check(len(hung) == 1, f"{what}: the hook did not run once")
+        hung[0].join(timeout=60.0)
+        check(not hung[0].is_alive(), f"{what}: the abandoned worker lives on")
+
+    binds = []
+    with HeldSolve() if overlap else contextlib.nullcontext() as held:
+        containment.set_device_fault_hook(hang)
+        try:
+            cyc = scheduler_cycle(sched, dev)
+        finally:
+            containment.set_device_fault_hook(None)
+        st = cyc["stats"]
+        ladder = [(e["rung"], e["outcome"]) for e in st["solve_ladder"]]
+        check(ladder == [("sparse", "timeout"), ("native", "ok")],
+              f"{what}: ladder {ladder}")
+        check(st["backend"] == "native", f"{what}: {st['backend']}")
+        check(containment.BREAKER.state == "open", f"{what}: breaker closed")
+        dc = DC.device_cache_of(cache)
+        check(not dc.dev and dc.drop_reason == "solve-abandoned",
+              f"{what}: the resident pack was not dropped")
+        binds.append(dict(cache.binder.binds))
+        if overlap:
+            check(held.held.wait(300.0),
+                  f"{what}: the abandoned solve never reached its second "
+                  f"bid_sparse launch")
+        else:
+            end_of_worker()
+        # Breaker open: the next cycle is pinned to the native floor.
+        add_gang_burst(cache, np.random.RandomState(1), "pgx", 5, 100, 5)
+        pinned = scheduler_cycle(sched, dev)
+        check(pinned["stats"].get("breaker_pinned") is True,
+              f"{what}: the open breaker did not pin the next cycle")
+        binds.append(dict(cache.binder.binds))
+        containment.reset_breaker()
+        containment.configure(None)
+        add_gang_burst(cache, np.random.RandomState(2), "pgy", 5, 100, 5)
+        if overlap:
+            check(not hung and held.first.is_alive(),
+                  f"{what}: the abandoned solve ended before the next pack")
+        after = scheduler_cycle(sched, dev)
+        check_healthy(after, "bid_sparse", "sparse", backend,
+                      f"{what} after reset")
+        reasons = after["stats"].get("device_full_reasons") or {}
+        check(reasons and set(reasons.values()) == {"solve-abandoned"}
+              and after["pack"]["uploads"] == len(K.PackedInputs._fields),
+              f"{what}: the next pack was not a labelled full upload: "
+              f"{reasons}")
+        binds.append(dict(cache.binder.binds))
+        if overlap:
+            check(held.late_launches > 0,
+                  f"{what}: the abandoned solve launched nothing beside the "
+                  f"next cycle's solve")
+            end_of_worker()
     cache.shutdown()
-    out["b"] = {"ladder": st["solve_ladder"], "placed": placed_native,
-                "breaker": "open", "timed_out": cycle_line(cyc),
-                "pinned": cycle_line(pinned), "after": cycle_line(after)}
-    log(f"phase 9b: timeout -> native ({placed_native} binds), breaker "
-        f"open, worker ended; next pack: {after['pack']['uploads']} "
-        f"uploads, reasons {sorted(set(reasons.values()))}; "
-        f"{json.dumps(out['b']['timed_out'])}")
-    return out
+    record = {"ladder": st["solve_ladder"], "binds": [len(b) for b in binds],
+              "breaker": "open", "timed_out": cycle_line(cyc),
+              "pinned": cycle_line(pinned), "after": cycle_line(after),
+              "pack_reasons": sorted(set(reasons.values()))}
+    if overlap:
+        record["abandoned_launches"] = {"before": held.first_launches
+                                        - held.late_launches,
+                                        "beside_next": held.late_launches}
+    return {"binds": binds, "record": record}
 
 
 def main() -> int:

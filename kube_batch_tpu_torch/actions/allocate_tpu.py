@@ -66,6 +66,7 @@ from ..framework import Action, register_action
 from ..obs import RECORDER, span
 from ..obs.tracer import TRACER
 from ..solver import solve_sharded, tensorize
+from ..solver.device_cache import drop_resident
 from ..utils.lockdebug import wrap_lock
 from ..utils.scheduler_helper import prioritize_nodes, select_best_node
 
@@ -194,7 +195,11 @@ class AsyncSolveHandle:
         parent = TRACER.capture()
         if use_native:
             handle = cls("native")
-            from ..native import solve_native
+            from ..native import native_available, solve_native
+
+            # greedy.cpp is built at its first use, here, outside the
+            # fetch's deadline; a failed build raises in the worker.
+            native_available()
 
             def traced_solve():
                 with TRACER.adopt(parent), span("native_solve"):
@@ -456,9 +461,7 @@ class AllocateTpuAction(Action):
                     # The abandoned solve may still be issuing rounds
                     # that read the resident buffers; the next pack
                     # must not patch them in place under it.
-                    dc = getattr(ssn.cache, "_torch_device_cache", None)
-                    if dc is not None:
-                        dc.drop("solve-abandoned")
+                    drop_resident(ssn.cache, "solve-abandoned")
                 nxt = "native" if timed_out else rungs[idx + 1]
                 idx = rungs.index(nxt)
                 metrics.register_solver_fallback(rung, nxt, reason)
@@ -584,8 +587,6 @@ class AllocateTpuAction(Action):
         dev = None
         if not use_native:
             dev = self._resolve_device()
-            # The breaker's canary probe solves on this device too.
-            containment.configure_device(dev)
         # Circuit-breaker gate (solver/containment.py), also before
         # tensorize: an OPEN breaker pins the cycle to the native floor
         # without touching the quarantined device at all — no device
@@ -593,7 +594,8 @@ class AllocateTpuAction(Action):
         # ticks the cooldown and, at expiry, runs the bounded canary
         # probe (success re-promotes this very cycle).
         breaker_pinned = False
-        if not use_native and not containment.BREAKER.allow_device():
+        # The canary probe solves on the action's device.
+        if not use_native and not containment.BREAKER.allow_device(dev):
             use_native = True
             breaker_pinned = True
             last_stats["breaker_pinned"] = True

@@ -33,19 +33,6 @@ class NativeUnavailable(RuntimeError):
     """The native library could not be built/loaded on this host."""
 
 
-def _build_command(out_dir: str) -> list:
-    """``make`` with the packaged Makefile, or the Makefile's own
-    compile line (without OpenMP) where ``make`` is absent."""
-    if shutil.which("make"):
-        return ["make", "-B", "-C", _NATIVE_DIR, f"BUILD={out_dir}"]
-    os.makedirs(out_dir, exist_ok=True)
-    return [
-        os.environ.get("CXX", "g++"), "-O3", "-std=c++17", "-fPIC",
-        "-shared", os.path.join(_NATIVE_DIR, "greedy.cpp"),
-        "-o", os.path.join(out_dir, "libgreedy.so"),
-    ]
-
-
 def _load() -> ctypes.CDLL:
     global _lib, _load_error
     with _lock:
@@ -63,7 +50,7 @@ def _load() -> ctypes.CDLL:
                 scratch = os.path.join(_BUILD_DIR, f".tmp-{os.getpid()}")
                 try:
                     subprocess.run(
-                        _build_command(scratch),
+                        ["make", "-B", "-C", _NATIVE_DIR, f"BUILD={scratch}"],
                         check=True, capture_output=True, text=True,
                     )
                     os.replace(

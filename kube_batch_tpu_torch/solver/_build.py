@@ -33,6 +33,8 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _loaded: dict = {}
+# Calls of build() in this process: kernels.jit_compilation_count.
+build_calls = 0
 
 
 def nvcc_path() -> str:
@@ -63,6 +65,8 @@ def build() -> dict:
     ``-Xptxas -v`` report (registers, shared memory, spills)."""
     import time
 
+    global build_calls
+    build_calls += 1
     out = library_path()
     if out.is_file():
         return {"path": str(out), "built": False, "seconds": 0.0, "log": ""}

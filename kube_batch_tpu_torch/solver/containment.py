@@ -23,7 +23,7 @@ LIVENESS. Three cooperating pieces live here, consumed by
   After a cooldown measured in CYCLES (wall time would break sim
   replay determinism) the breaker half-opens and runs a bounded canary
   probe — a 1×1 solve through ``solve_auto`` and the bid kernels on the
-  action's device (:func:`configure_device`), ended by one device→host
+  action's device (``BREAKER.allow_device(device)``), ended by one device→host
   read — and re-closes on success.
   The probe is synchronous but deadline-bounded, so re-promotion costs
   at most ``probe_timeout`` once per cooldown window.
@@ -108,7 +108,7 @@ def call_with_deadline(fn, timeout: float, label: str = "solve"):
 # small enough that a wedged backend costs one budget, not forever.
 DEFAULT_SOLVE_BUDGET = 30.0
 
-_config = {"solve_budget": None, "device": None}
+_config = {"solve_budget": None}
 
 
 def configure(solve_budget: Optional[float] = None) -> None:
@@ -127,13 +127,6 @@ def configure_from_period(schedule_period: float) -> float:
     budget = max(DEFAULT_SOLVE_BUDGET, 10.0 * float(schedule_period))
     configure(budget)
     return budget
-
-
-def configure_device(device) -> None:
-    """Stamp the device the canary probe solves on (the action stamps
-    its own before the breaker gate). ``None`` means ``cuda``, which
-    raises inside the probe where no CUDA device exists."""
-    _config["device"] = device
 
 
 def solve_budget() -> float:
@@ -232,9 +225,10 @@ STATE_OPEN = "open"
 STATE_HALF_OPEN = "half-open"
 
 
-def _canary_probe(timeout: float) -> bool:
+def _canary_probe(timeout: float, device=None) -> bool:
     """Bounded device-health probe: a 1×1 solve through ``solve_auto``
-    with the bid kernels on the configured device, ended by the one
+    with the bid kernels on ``device`` (``None`` means ``cuda``, which
+    raises inside the probe where no CUDA device exists), ended by the one
     device→host read of ``assigned``. True iff the whole round trip
     completes within ``timeout``. Consults the sim fault hook first so
     injected backend loss fails the probe deterministically."""
@@ -248,7 +242,7 @@ def _canary_probe(timeout: float) -> bool:
         from ..device import resolve_device
         from .kernels import make_inputs, solve_auto
 
-        dev = resolve_device(_config["device"])
+        dev = resolve_device(device)
 
         def t(x, dtype=torch.float32):
             return torch.as_tensor(x, dtype=dtype, device=dev)
@@ -291,7 +285,7 @@ class CircuitBreaker:
         self,
         failure_threshold: int = 3,
         cooldown_cycles: int = 8,
-        probe: Optional[Callable[[float], bool]] = None,
+        probe: Optional[Callable[[float, object], bool]] = None,
         probe_timeout: float = 5.0,
     ):
         self._lock = wrap_lock("solver.breaker")
@@ -375,10 +369,11 @@ class CircuitBreaker:
         with self._lock:
             self.failure_streak = 0
 
-    def allow_device(self) -> bool:
+    def allow_device(self, device=None) -> bool:
         """Gate consulted once per cycle BEFORE tensorize. Closed →
         True. Open → tick the cooldown; when it expires, half-open and
-        run the bounded canary probe synchronously: success re-closes
+        run the bounded canary probe synchronously on ``device`` (the
+        action's): success re-closes
         (this very cycle runs on the device again), failure re-opens
         with a fresh cooldown."""
         with self._lock:
@@ -398,7 +393,7 @@ class CircuitBreaker:
             timeout = min(self.probe_timeout, max(0.1, solve_budget()))
         ok = False
         try:
-            ok = bool(probe(timeout))
+            ok = bool(probe(timeout, device))
         except Exception as exc:
             logger.warning("breaker canary probe raised: %s", exc)
         with self._lock:

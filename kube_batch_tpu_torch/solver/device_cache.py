@@ -277,3 +277,12 @@ def device_cache_of(cache, device=None) -> Optional[DeviceSnapshotCache]:
             f"the device cache lives on {dc.device}, not {device}"
         )
     return dc
+
+
+def drop_resident(cache, reason: str) -> None:
+    """Drop the scheduler cache's resident buffers, if it has any; the
+    next pack is a full upload labelled ``reason`` (see
+    :meth:`DeviceSnapshotCache.drop`)."""
+    dc = getattr(cache, "_torch_device_cache", None)
+    if dc is not None:
+        dc.drop(reason)

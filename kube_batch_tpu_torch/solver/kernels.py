@@ -1034,12 +1034,14 @@ def solve_auto(inputs, max_rounds: int = 256,
 
 
 def jit_compilation_count() -> int:
-    """Counterpart of the reference's compiled-variant census: the
-    number of bid-kernel libraries this process has built or loaded
-    (``_build.load_library``: 0 before the first launch on a card, 1
-    after). The port's solve runs eager torch ops with no per-shape
-    compilation, so this census, like the reference's, must stay flat
-    across steady cycles; growth would mean a library built per cycle."""
+    """Counterpart of the reference's compiled-variant census: how many
+    times this process asked for the bid library to be built
+    (``_build.build``, once from the first ``load_library`` on a card,
+    plus any direct caller such as ``chip_smoke.py``). It is 0 until a
+    kernel first launches on a card, so it stays 0 on the CPU. The
+    port's solve runs eager torch ops with no per-shape compilation, so
+    this census, like the reference's, must stay flat across steady
+    cycles; growth would mean a build per cycle."""
     from . import _build
 
-    return len(_build._loaded)
+    return _build.build_calls

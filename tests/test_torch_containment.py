@@ -79,7 +79,6 @@ def _fresh_containment(monkeypatch):
     containment.set_device_fault_hook(None)
     containment.set_result_tamper_hook(None)
     containment.configure(None)
-    containment.configure_device(None)
     explain.clear()
 
 
@@ -330,14 +329,16 @@ class TestDegradationLadder:
         c.shutdown()
 
     def test_timeout_jumps_to_native_and_opens_breaker(self):
-        # The budget bounds the native rung's fetch too: 1 s keeps the
-        # floor's small solve inside it on a loaded test machine.
-        containment.configure(solve_budget=1.0)
+        # The budget bounds the native rung's fetch too. In a process
+        # that has loaded torch, greedy.cpp's OpenMP regions run on
+        # torch's libgomp, and on a loaded CPU host the floor's small
+        # solve has taken up to 1.2 s: 5 s keeps it inside.
+        containment.configure(solve_budget=5.0)
         finished = threading.Event()
 
         def hook(stage):
             if stage == "solve":
-                time.sleep(2.5)  # outsleep the budget
+                time.sleep(6.0)  # outsleep the budget
                 finished.set()
 
         containment.set_device_fault_hook(hook)
@@ -472,7 +473,7 @@ class TestCircuitBreaker:
         probe_ok = [False]
         b = CircuitBreaker(
             failure_threshold=3, cooldown_cycles=2,
-            probe=lambda t: probe_ok[0],
+            probe=lambda t, dev: probe_ok[0],
         )
         b.record_device_failure("exception", exc="E")
         b.record_device_failure("exception", exc="E")
@@ -502,7 +503,7 @@ class TestCircuitBreaker:
         assert b.state == "open" and b.trips == 1
 
     def test_pin_open_blocks_until_unpinned(self):
-        b = CircuitBreaker(cooldown_cycles=1, probe=lambda t: True)
+        b = CircuitBreaker(cooldown_cycles=1, probe=lambda t, dev: True)
         b.pin_open("bench-degraded")
         for _ in range(5):
             assert b.allow_device() is False
@@ -520,22 +521,29 @@ class TestCircuitBreaker:
         assert d["quarantine_age_seconds"] is not None
         assert d["cooldown_cycles_left"] > 0
 
-    def test_canary_probe_solves_on_the_configured_device(self):
-        containment.configure_device("cpu")
-        assert containment._canary_probe(30.0) is True
+    def test_canary_probe_solves_on_the_given_device(self):
+        assert containment._canary_probe(30.0, "cpu") is True
         b = CircuitBreaker(cooldown_cycles=1)
         b.record_device_failure("timeout", open_now=True)
-        assert b.allow_device() is True  # the default probe re-closed it
+        # The default probe re-closed it, on the device the gate named.
+        assert b.allow_device("cpu") is True
         assert b.state == "closed" and b.probes_ok == 1
 
+    def test_probe_hands_the_gate_device_to_the_probe(self):
+        seen = []
+        b = CircuitBreaker(cooldown_cycles=1,
+                           probe=lambda t, dev: seen.append(dev) or True)
+        b.record_device_failure("timeout", open_now=True)
+        assert b.allow_device(torch.device("cpu")) is True
+        assert seen == [torch.device("cpu")]
+
     def test_canary_probe_fails_under_the_fault_hook(self):
-        containment.configure_device("cpu")
         containment.set_device_fault_hook(
             lambda stage: (_ for _ in ()).throw(RuntimeError(stage))
         )
         b = CircuitBreaker(cooldown_cycles=1)
         b.record_device_failure("timeout", open_now=True)
-        assert b.allow_device() is False
+        assert b.allow_device("cpu") is False
         assert b.state == "open" and b.probes_failed == 1
 
 

@@ -142,3 +142,51 @@ def test_scheduler_and_action_need_cuda_unless_cpu_is_asked_for():
     PORT.close_session(ssn)
     assert cache.binder.binds == {}
     cache.shutdown()
+
+
+def test_census_counts_library_builds(monkeypatch, tmp_path):
+    """The compiled-variant census counts requests to build the bid
+    library, so a build per cycle would show as growth."""
+    from kube_batch_tpu_torch.solver import _build
+    from kube_batch_tpu_torch.solver.kernels import jit_compilation_count
+
+    lib = tmp_path / _build.LIB_NAME
+    lib.write_bytes(b"")
+    monkeypatch.setattr(_build, "library_path", lambda: lib)
+    before = jit_compilation_count()
+    for _ in range(2):
+        assert _build.build()["built"] is False
+    assert jit_compilation_count() == before + 2
+
+
+@pytest.mark.gpu
+def test_census_stays_flat_across_cycles_on_the_card():
+    """On the card the first cycle builds (or finds) the bid library
+    once; the cycles after it leave the census where it was."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: run `python -m pytest -m gpu "
+                    "tests/test_torch_scheduler.py` on the card")
+    from kube_batch_tpu_torch.solver.kernels import jit_compilation_count
+
+    action, _ = get_action("allocate_tpu")
+    saved = (action.device, action.use_kernel)
+    cache = PORT.build_cluster(*SHAPE, seed=0)
+    try:
+        sched = PScheduler(cache, TPU_CONF)
+        assert action.device == torch.device("cuda") and action.use_kernel
+        rng = np.random.RandomState(1)
+        counts, backends = [], []
+        for cycle in range(4):
+            if cycle == 3:
+                n_tasks, _, n_queues, n_groups = SHAPE
+                add_burst(PORT, cache, rng, "burst", 1, n_tasks // n_groups,
+                          n_queues)
+            sched.run_once()
+            assert cache.wait_for_side_effects(timeout=60.0)
+            counts.append(jit_compilation_count())
+            backends.append(P_atpu.last_stats.get("backend"))
+    finally:
+        cache.shutdown()
+        action.device, action.use_kernel = saved
+    assert backends[0] == "torch-cuda", backends
+    assert counts[0] >= 1 and len(set(counts)) == 1, counts
