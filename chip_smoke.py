@@ -27,22 +27,23 @@ phase fails. Phases:
    back-to-back wrapper calls (CUDA events: ``ms``), its device time per
    launch with the L2 flushed before each (``device_ms``), the plain
    versions' times and each kernel's bound;
-7. cycle: the system's own path from a cluster to validated placements.
-   (a) ``build_cluster(50000, 5000, 5, 500, seed=0)`` in the port's
+7. cycle: the system's own path from a cluster to validated placements,
+   by hand: ``build_cluster(10000, 1000, 4, 100, seed=0)`` in the port's
    ``SchedulerCache`` → ``open_session`` with the default tiers →
    ``tensorize`` packed through the device-resident cache onto ``cuda``
-   → ``solve_auto`` (``bid_sparse``) → ``validate_placements`` →
+   → ``solve_auto`` (``bid_dense``) → ``validate_placements`` →
    ``close_session``; the pack equals ``pack_inputs`` of the host
-   bundle and the result equals the same solve on the CPU. (b) the same
-   at 10,000 x 1,000 (4 queues, 100 gangs; ``bid_dense``). (c) three
-   churn cycles on (a): 1 % of pending pods deleted and as many added,
-   the previous cycle's first 1 % of placements bound through
+   bundle and the result equals the same solve on the CPU. Then one
+   churn cycle: 1 % of pending pods deleted and as many added, the
+   previous cycle's first 1 % of placements bound through
    ``cache.bind``, 1 % of nodes updated; the pack must patch in place
    and equal a cold pack, the solve the CPU's. Warm medians of 3 for
    the snapshot, ``open_session``, ``tensorize`` (host; the candidate
    selection within it), the pack (full and patched), the solve and
-   the validation. One churn cycle (``PHASE7_CHURN``; three until the
-   scheduler phases joined);
+   the validation. (50,000 x 5,000 and three churn cycles until the
+   scheduler phases joined; cut to this size for time: phase 8 drives
+   50,000 x 5,000 through the scheduler loop, phase 10 through the
+   process);
 8. the scheduler loop: ``Scheduler(cache, TPU policy, device="cuda")
    .run_once()`` (``allocate_tpu``: warm plan, ``tensorize`` with the
    device pack, the solve on the device worker, the overlap window, the
@@ -50,11 +51,16 @@ phase fails. Phases:
    apply, the Releasing epilogue, verdicts; then ``backfill``) over
    bench.py's ``bench_cycle`` cycles: cold, steady, idle and a 1 % gang
    burst, at 50,000 x 5,000 (``bid_sparse``) and 10,000 x 1,000
-   (``bid_dense``), twice on the card and once on the CPU. Every
-   solving cycle must run on ``torch-cuda`` on one ``ok`` rung
-   (``sparse``, resp. ``dense``) with its kernel launched, no breaker
-   pin, no ladder descent and no rejected placement; the (pod, node)
-   binds must equal the CPU run's. Per cycle the action's phases
+   (``bid_dense``), twice on the card (candidate selection on the
+   device, then with ``KBT_SELECT_DEVICE=0`` on the host) and once on
+   the CPU. Every solving cycle must run on ``torch-cuda`` on one ``ok``
+   rung (``sparse``, resp. ``dense``) with its kernel launched, no
+   breaker pin, no ladder descent and no rejected placement; at 50,000
+   x 5,000 the cold and delta cycles select on the device
+   (``select_path == "device"``) and their slabs equal the host
+   selection's; the (pod, node) binds must equal the CPU run's; the
+   census stays flat from the cold cycle through the idle one. Per
+   cycle the selection's time, the action's phases
    (``tensorize``, ``solve`` = launch + overlap + block, ``apply``,
    ``epilogue``, ``verdicts``) and the flight record's (``open``,
    ``backfill``, ``close``, the whole cycle), the warm outcome and the
@@ -69,11 +75,27 @@ phase fails. Phases:
    ``solve-abandoned``. Run twice: once with the abandoned worker
    joined before the next cycle, once with it held mid-rounds until
    that cycle has packed and launched, so both solves issue rounds at
-   once; the binds after every cycle must be the same in both runs.
+   once; the binds after every cycle must be the same in both runs;
+10. the process on the card: (1) ``python -m kube_batch_tpu_torch
+   --cluster-state config/example-cluster.yaml --scheduler-conf <TPU
+   policy> --once`` in a subprocess binds the example gang of 3 on
+   ``torch-cuda``; (2) ``cli.run`` in loop mode (period 0.5 s) over an
+   ``InProcessCluster`` filled with phase 8's clusters, stopped by a
+   thread that polls ``/debug/vars`` after at least 3 cycles: every
+   cycle healthy on the card, the first solving cold with the kernel
+   (device selection at 50,000 x 5,000), gangs all or nothing, and the
+   binds equal phase 8's CPU binds after its idle cycle; (3) in the
+   10,000 x 1,000 loop, a pod created and a bind made with the cache's
+   watch detached: the sweep reports ``missed-pod`` and
+   ``missed-bind`` and a card cycle binds the pod; a successor process
+   (``--once``, file lease) over a fenced predecessor's bind-intent
+   journal reports the CPU run's ``reconcile_journal`` and binds on the
+   card.
 
 Each phase sets the kernels' launch counters to 0 just before it drives
 the path and reads them just after (phase 7: around each cycle, from
-``open_session`` to the solve; phase 8: around each ``run_once``). The
+``open_session`` to the solve; phases 8 and 10: around each
+``run_once``; 10.1: the subprocess starts from 0). The
 kernels' ``launches`` in the JSON record are phase 8's first card run
 (the four cycles at the kernel's size). The next-to-last line of
 standard output is the kernels' JSON record, the last
@@ -85,14 +107,17 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import hashlib
 import json
 import os
 import re
 import statistics
+import socket
 import subprocess
 import sys
 import threading
 import time
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -101,7 +126,11 @@ import torch
 import kube_batch_tpu_torch.plugins  # noqa: F401 (registers the plugins)
 from kube_batch_tpu_torch import metrics
 from kube_batch_tpu_torch.actions import allocate_tpu as ATPU
-from kube_batch_tpu_torch.api import PodPhase, build_resource_list
+from kube_batch_tpu_torch.api import (
+    GROUP_NAME_ANNOTATION_KEY,
+    PodPhase,
+    build_resource_list,
+)
 from kube_batch_tpu_torch.framework import close_session, open_session
 from kube_batch_tpu_torch.native import greedy as NATIVE
 from kube_batch_tpu_torch.obs import RECORDER
@@ -111,6 +140,7 @@ from kube_batch_tpu_torch.solver import bid_kernels as BK
 from kube_batch_tpu_torch.solver import containment
 from kube_batch_tpu_torch.solver import device_cache as DC
 from kube_batch_tpu_torch.solver import kernels as K
+from kube_batch_tpu_torch.solver import select_device as SD
 from kube_batch_tpu_torch.solver import snapshot as S
 from kube_batch_tpu_torch.solver import topk as TK
 from kube_batch_tpu_torch.solver.masks import CombinedMask
@@ -121,9 +151,11 @@ from kube_batch_tpu_torch.utils.test_utils import (
     DEFAULT_TIERS_ARGS,
     add_gang_burst,
     build_cluster,
+    build_in_process_cluster,
     build_node,
     build_pod,
     build_pod_group,
+    build_queue,
     make_tiers,
 )
 
@@ -854,21 +886,16 @@ def churn(cache, cyc, rng, cycle):
             "nodes_updated": len(range(0, len(names), 100))}
 
 
-# Phase 7's clusters: (name, build_cluster arguments, kernel of the path).
+# Phase 7's clusters: (name, build_cluster arguments, kernel of the
+# path). 10k x 1k only, to keep the script inside half its time limit:
+# at 50k x 5k each cycle also solved on the CPU (~40 s).
 CYCLES = (
-    ("a_50k_5k", (50_000, 5_000, 5, 500), "bid_sparse"),
     ("b_10k_1k", (10_000, 1_000, 4, 100), "bid_dense"),
 )
 
 
-# Churn cycles of phase 7 (three before the scheduler phases joined;
-# one since, to keep the script inside half its time limit: each churn
-# cycle also solves on the CPU, ~40-50 s at 50k x 5k).
-PHASE7_CHURN = 1
-
-
 def run_cycles(dev):
-    """Phase 7: (a) 50k×5k, (c) churn cycles on it, (b) 10k×1k."""
+    """Phase 7: the cycle by hand at 10k×1k, then one churn cycle."""
     tiers = make_tiers(*DEFAULT_TIERS_ARGS)
     out = {}
     n_fields = len(K.PackedInputs._fields)
@@ -898,38 +925,30 @@ def run_cycles(dev):
             "pack_full_ms": statistics.median(fulls),
             "pack_full_bytes": first["pack"]["bytes_shipped"],
         }
-        if kernel == "bid_sparse":
-            rng = np.random.RandomState(1)
-            prev, churned = first, []
-            for c in range(PHASE7_CHURN):
-                events = churn(cache, prev, rng, c)
-                cyc = drive_cycle(cache, tiers)
-                cw = f"{what} churn {c}"
-                check(cyc["launches"][kernel] > 0, f"{cw}: {kernel} idle")
-                check(cyc["pack"]["patches"] > 0, f"{cw}: nothing patched")
-                check(cyc["pack"]["uploads"] < n_fields,
-                      f"{cw}: every field re-uploaded")
-                cold, _ = cold_pack(cyc["ctx"].host_inputs, dev)
-                cs = check_cycle(cyc, dev, cw, cold=cold)
-                churned.append(dict(cycle_summary(cyc), events=events,
-                                    cpu_solve_s=cs))
-                prev = cyc
-            rec["churn"] = churned
-            rec["pack_patched_ms"] = statistics.median(
-                c["ms"]["pack_ms"] for c in churned)
-            rec["pack_patched_bytes"] = statistics.median(
-                c["pack"]["bytes_shipped"] for c in churned)
-            rec["churn_ms"] = medians(churned)
+        # One churn cycle: the pack patches in place.
+        events = churn(cache, first, np.random.RandomState(1), 0)
+        cyc = drive_cycle(cache, tiers)
+        cw = f"{what} churn"
+        check(cyc["launches"][kernel] > 0, f"{cw}: {kernel} idle")
+        check(cyc["pack"]["patches"] > 0, f"{cw}: nothing patched")
+        check(cyc["pack"]["uploads"] < n_fields,
+              f"{cw}: every field re-uploaded")
+        cold, _ = cold_pack(cyc["ctx"].host_inputs, dev)
+        cs = check_cycle(cyc, dev, cw, cold=cold)
+        churned = [dict(cycle_summary(cyc), events=events, cpu_solve_s=cs)]
+        rec["churn"] = churned
+        rec["pack_patched_ms"] = cyc["ms"]["pack_ms"]
+        rec["pack_patched_bytes"] = cyc["pack"]["bytes_shipped"]
+        rec["churn_ms"] = medians(churned)
         cache.shutdown()
         out[name] = rec
         log(f"phase 7: {name}: {json.dumps(rec['warm_ms'])}; pack full "
             f"{rec['pack_full_ms']:.3f} ms ({rec['pack_full_bytes']} B); "
             f"first {json.dumps({k: v for k, v in rec['first'].items() if k not in ('tensorize', 'pack')})}")
-        if "churn" in rec:
-            log(f"phase 7: {name} churn: {json.dumps(rec['churn_ms'])}; "
-                f"pack patched {rec['pack_patched_ms']:.3f} ms "
-                f"({rec['pack_patched_bytes']} B); "
-                + "; ".join(json.dumps(c["pack"]) for c in rec["churn"]))
+        log(f"phase 7: {name} churn: {json.dumps(rec['churn_ms'])}; "
+            f"pack patched {rec['pack_patched_ms']:.3f} ms "
+            f"({rec['pack_patched_bytes']} B); "
+            + "; ".join(json.dumps(c["pack"]) for c in rec["churn"]))
     return out
 
 
@@ -949,6 +968,21 @@ SCHED_CYCLES = ("cold", "steady", "idle", "delta")
 # overlap window and block point).
 STAT_PHASES = ("tensorize_ms", "solve_ms", "solve_launch_ms", "overlap_ms",
                "solve_block_ms", "apply_ms", "epilogue_ms", "verdicts_ms")
+
+
+@contextlib.contextmanager
+def environ(**values):
+    """Set environment variables for the block, then restore them."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def _sync(dev):
@@ -999,6 +1033,45 @@ class LoopClock:
             delattr(obj, name)
 
 
+class SelectionLog:
+    """Records every ``topk.select_candidates`` call while it lasts: its
+    host time (the device path ends in a device->host read, so the
+    clock brackets its device work), its ``select_path`` and a digest
+    of the slabs it produced (``task_cand``, ``cand_idx``,
+    ``cand_static``, ``cand_info``)."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __enter__(self):
+        self._orig = orig = TK.select_candidates
+
+        def select(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = orig(*args, **kwargs)
+            ms = (time.perf_counter() - t0) * 1e3
+            rec = {"ms": ms, "path": None, "digest": None}
+            if out is not None:
+                h = hashlib.blake2b(digest_size=16)
+                for f in ("task_cand", "cand_idx", "cand_static",
+                          "cand_info"):
+                    h.update(np.ascontiguousarray(getattr(out, f)).tobytes())
+                rec.update(path=out.stats["select_path"],
+                           digest=h.hexdigest(),
+                           hits=out.stats["sel_cache_hits"],
+                           rows_rebuilt=out.stats.get("sel_rows_rebuilt"),
+                           cols_patched=out.stats.get("sel_cols_patched"))
+            self.calls.append(rec)
+            return out
+
+        TK.select_candidates = select
+        return self
+
+    def __exit__(self, *exc):
+        TK.select_candidates = self._orig
+        return False
+
+
 def scheduler_cycle(sched, dev):
     """One ``Scheduler.run_once`` with the launch counters zeroed just
     before and read just after; the binder is drained afterwards,
@@ -1007,7 +1080,7 @@ def scheduler_cycle(sched, dev):
     BK.bid_sparse.launches = 0
     fallbacks = metrics.metrics.solver_fallback.total()
     _sync(dev)
-    with LoopClock() as loop:
+    with LoopClock() as loop, SelectionLog() as sel:
         t0 = time.perf_counter()
         sched.run_once()
         _sync(dev)
@@ -1032,6 +1105,8 @@ def scheduler_cycle(sched, dev):
         "warm": stats.get("warm_outcome"),
         "pack": {k[len("device_"):]: v for k, v in stats.items()
                  if k.startswith("device_")},
+        "select": sel.calls,
+        "census": {"builds": _build.build_calls, "selection": SD.census()},
     }
 
 
@@ -1054,10 +1129,11 @@ def check_healthy(cyc, kernel, rung, backend, what):
     return True
 
 
-def run_scheduler(shape, dev, kernel, rung, what):
+def run_scheduler(shape, dev, kernel, rung, what, host_select=False):
     """bench_cycle's four cycles through ``Scheduler.run_once`` with the
     TPU policy on a fresh seeded cluster; returns the per-cycle records
-    and the final (pod, node) binds."""
+    and the final (pod, node) binds. ``host_select`` closes the device
+    selection gate (``KBT_SELECT_DEVICE=0``) for the run."""
     n_tasks, _, n_queues, n_groups = shape
     cache = build_cluster(*shape, seed=0)
     sched = Scheduler(cache, TPU_CONF, device=dev)
@@ -1068,26 +1144,40 @@ def run_scheduler(shape, dev, kernel, rung, what):
     backend = f"torch-{dev.type}"
     rng = np.random.RandomState(1)  # bench_cycle: seed + 1
     cycles = {}
+    gate = {SD.SELECT_DEVICE_ENV: "0"} if host_select else {}
     try:
-        for name in SCHED_CYCLES:
-            if name == "delta":
-                add_gang_burst(cache, rng, "pgd", max(1, n_groups // 100),
-                               n_tasks // n_groups, n_queues)
-            cyc = scheduler_cycle(sched, dev)
-            cyc["solved"] = check_healthy(cyc, kernel, rung, backend,
-                                          f"{what} {name}")
-            cycles[name] = cyc
+        with environ(**gate):
+            for name in SCHED_CYCLES:
+                if name == "delta":
+                    add_gang_burst(cache, rng, "pgd",
+                                   max(1, n_groups // 100),
+                                   n_tasks // n_groups, n_queues)
+                cyc = scheduler_cycle(sched, dev)
+                cyc["solved"] = check_healthy(cyc, kernel, rung, backend,
+                                              f"{what} {name}")
+                cyc["binds"] = dict(cache.binder.binds)
+                cycles[name] = cyc
         binds = dict(cache.binder.binds)
     finally:
         containment.configure(None)
         cache.shutdown()
     check(cycles["cold"]["solved"] and cycles["delta"]["solved"],
           f"{what}: the cold and delta cycles must solve")
-    # The compiled-variant census (builds of the bid library) is flat.
-    census = {c["stats"]["jit_variants"] for c in cycles.values()
-              if "jit_variants" in c["stats"]}
-    check(len(census) == 1 and (dev.type == "cpu" or min(census) >= 1),
-          f"{what}: the bid-library census moved across cycles: {census}")
+    # The census: builds of the bid library flat across the four
+    # cycles; selection's shape buckets flat from the cold cycle through
+    # the steady and idle ones, and the delta cycle may mint at most a
+    # new row bucket and a new column bucket.
+    builds = {c["census"]["builds"] for c in cycles.values()}
+    check(len(builds) == 1 and (dev.type == "cpu" or min(builds) >= 1),
+          f"{what}: the bid-library census moved across cycles: {builds}")
+    sel = [cycles[c]["census"]["selection"] for c in SCHED_CYCLES]
+    check(sel[0] == sel[1] == sel[2] and sel[3] - sel[2] <= 2,
+          f"{what}: the selection census moved across steady cycles: {sel}")
+    for name, cyc in cycles.items():
+        want = "host" if host_select else "device"
+        for rec in cyc["select"]:
+            check(rec["path"] == want,
+                  f"{what} {name}: select_path {rec['path']}, not {want}")
     return cycles, binds
 
 
@@ -1095,24 +1185,40 @@ def cycle_line(cyc):
     ms = {k: (round(v, 3) if isinstance(v, float) else v)
           for k, v in cyc["ms"].items()}
     st = cyc["stats"]
-    return {"warm": cyc["warm"], "backend": st.get("backend"),
-            "rounds": st.get("rounds"), "placed": st.get("placed"),
-            "launches": cyc["launches"], "ms": ms,
-            "pack": {k: cyc["pack"].get(k) for k in (
-                "reuses", "patches", "uploads", "bytes_shipped")}}
+    out = {"warm": cyc["warm"], "backend": st.get("backend"),
+           "rounds": st.get("rounds"), "placed": st.get("placed"),
+           "launches": cyc["launches"], "ms": ms,
+           "pack": {k: cyc["pack"].get(k) for k in (
+               "reuses", "patches", "uploads", "bytes_shipped")}}
+    if cyc.get("select"):
+        out["select"] = [{k: (round(v, 3) if isinstance(v, float) else v)
+                          for k, v in r.items() if k != "digest"}
+                         for r in cyc["select"]]
+    if "census" in cyc:
+        out["census"] = cyc["census"]
+    return out
+
+
+# The CPU run's binds after phase 8's idle cycle, by cluster.
+PHASE8_CPU_BINDS = {}
 
 
 def run_phase8(dev):
     """Phase 8: the scheduler loop at 50k x 5k and 10k x 1k, on the card
-    twice and on the CPU once; binds must match the CPU's."""
+    twice (device selection, then host selection) and on the CPU once;
+    binds must match the CPU's, and the slabs of every selecting cycle
+    must be the same in all three runs."""
     out = {}
     cpu = torch.device("cpu")
     for name, shape, kernel, rung in SCHED_CLUSTERS:
         rec = {}
+        runs = {}
         for run in ("card_1", "card_2"):
             t0 = time.perf_counter()
             cycles, binds = run_scheduler(shape, dev, kernel, rung,
-                                          f"phase 8 {name} {run}")
+                                          f"phase 8 {name} {run}",
+                                          host_select=run == "card_2")
+            runs[run] = cycles
             rec[run] = {c: cycle_line(cyc) for c, cyc in cycles.items()}
             rec[run]["seconds"] = time.perf_counter() - t0
             rec[run]["binds"] = len(binds)
@@ -1123,15 +1229,44 @@ def run_phase8(dev):
                 card_binds = binds
             else:
                 check(binds == card_binds,
-                      f"phase 8 {name}: two card runs bound differently")
+                      f"phase 8 {name}: device and host selection on the "
+                      f"card bound differently")
         t0 = time.perf_counter()
         cycles, cpu_binds = run_scheduler(shape, cpu, kernel, rung,
                                           f"phase 8 {name} cpu")
+        runs["cpu"] = cycles
         rec["cpu_seconds"] = time.perf_counter() - t0
         check(card_binds == cpu_binds,
               f"phase 8 {name}: the card bound {len(card_binds)} pods, the "
               f"CPU {len(cpu_binds)}; the (pod, node) sets differ")
         check(len(card_binds) > 0, f"phase 8 {name}: nothing bound")
+        # Slabs: device selection on the card = host selection on the
+        # card = the CPU run's, cycle by cycle.
+        selecting = []
+        for c in SCHED_CYCLES:
+            digests = {run: [r["digest"] for r in runs[run][c]["select"]]
+                       for run in runs}
+            check(len({tuple(d) for d in digests.values()}) == 1,
+                  f"phase 8 {name} {c}: slabs differ between device and "
+                  f"host selection: {digests}")
+            if digests["card_1"]:
+                selecting.append(c)
+        if kernel == "bid_sparse":
+            check(selecting[:1] == ["cold"] and "delta" in selecting,
+                  f"phase 8 {name}: the cold and delta cycles must select "
+                  f"(selected: {selecting})")
+        rec["selection"] = {
+            c: {"device_ms": [r["ms"] for r in runs["card_1"][c]["select"]],
+                "host_ms": [r["ms"] for r in runs["card_2"][c]["select"]],
+                "cpu_device_path_ms": [r["ms"] for r in
+                                       runs["cpu"][c]["select"]]}
+            for c in selecting}
+        for c, t in rec["selection"].items():
+            log(f"phase 8: {name} {c}: selection on the card "
+                f"{t['device_ms']} ms (device path) against "
+                f"{t['host_ms']} ms (host path); slabs equal")
+        # Phase 10 compares the process's binds with these.
+        PHASE8_CPU_BINDS[name] = runs["cpu"]["idle"]["binds"]
         rec["launches"] = {
             k: sum(rec["card_1"][c]["launches"][k] for c in SCHED_CYCLES)
             for k in ("bid_dense", "bid_sparse")}
@@ -1176,20 +1311,13 @@ def run_phase9(dev):
     descended = dict(cache.binder.binds)
     cache.shutdown()
     containment.reset_breaker()
-    saved = os.environ.get("KBT_SOLVER_TOPK")
-    os.environ["KBT_SOLVER_TOPK"] = "off"
-    try:
+    with environ(KBT_SOLVER_TOPK="off"):
         cache = build_cluster(*shape, seed=0)
         clean = scheduler_cycle(Scheduler(cache, TPU_CONF, device=dev), dev)
         check_healthy(clean, "bid_dense", "dense", backend,
                       "phase 9a clean dense")
         clean_binds = dict(cache.binder.binds)
         cache.shutdown()
-    finally:
-        if saved is None:
-            os.environ.pop("KBT_SOLVER_TOPK", None)
-        else:
-            os.environ["KBT_SOLVER_TOPK"] = saved
     check(descended == clean_binds,
           "phase 9a: the descended dense solve bound other pods than a "
           "clean dense solve")
@@ -1352,6 +1480,414 @@ def timeout_sequence(dev, overlap):
                                         - held.late_launches,
                                         "beside_next": held.late_launches}
     return {"binds": binds, "record": record}
+
+
+# -- phase 10: the process on the card --------------------------------------------
+
+EXAMPLE_STATE = "config/example-cluster.yaml"
+# The loop's scheduling period (s) and the least number of periodic
+# cycles each loop runs: the cold one, then steady or idle ones.
+LOOP_PERIOD = 0.5
+LOOP_CYCLES = 3
+
+# ``python -m kube_batch_tpu_torch <argv>`` with the in-process cluster's
+# bind_pod wrapped to print each bind; after the module's ``__main__``
+# returns, the action's backend and the kernels' launch counts.
+_ONCE_PROBE = """
+import json, runpy, sys
+from kube_batch_tpu_torch.actions import allocate_tpu as ATPU
+from kube_batch_tpu_torch.cluster import api
+from kube_batch_tpu_torch.solver import bid_kernels as BK
+bind = api.InProcessCluster.bind_pod
+def traced(self, pod, hostname):
+    bind(self, pod, hostname)
+    print("BIND " + json.dumps([pod.metadata.name, hostname]), flush=True)
+api.InProcessCluster.bind_pod = traced
+sys.argv = ["kube_batch_tpu_torch"] + %r
+runpy.run_module("kube_batch_tpu_torch", run_name="__main__")
+print("RESULT " + json.dumps({
+    "backend": ATPU.last_stats.get("backend"),
+    "launches": {"bid_dense": BK.bid_dense.launches,
+                 "bid_sparse": BK.bid_sparse.launches}}))
+"""
+
+
+def free_port():
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def truth_binds(cluster, namespace="bench"):
+    return {f"{p.namespace}/{p.name}": p.spec.node_name
+            for p in cluster.list_objects("Pod")
+            if p.spec.node_name and p.namespace == namespace}
+
+
+def gangs_whole(cluster, namespace="bench"):
+    """The PodGroups of ``namespace`` whose bound pods are fewer than
+    minMember but more than none (the scheduler binds all or nothing)."""
+    bound = {}
+    for p in cluster.list_objects("Pod"):
+        group = p.metadata.annotations.get(GROUP_NAME_ANNOTATION_KEY)
+        if group and p.spec.node_name and p.namespace == namespace:
+            bound[group] = bound.get(group, 0) + 1
+    return [pg.name for pg in cluster.list_objects("PodGroup")
+            if pg.namespace == namespace
+            and 0 < bound.get(pg.name, 0) < pg.spec.min_member]
+
+
+def run_once_subprocess(dev):
+    """10.1: the example gang through ``python -m kube_batch_tpu_torch
+    --once`` in its own process, on the card (the default device)."""
+    argv = ["--cluster-state", EXAMPLE_STATE, "--scheduler-conf",
+            TPU_CONF, "--once", "--listen-address", "127.0.0.1:0"]
+    if dev.type != "cuda":
+        argv += ["--device", dev.type]
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-c", _ONCE_PROBE % (argv,)], capture_output=True,
+        text=True, timeout=300,
+    )
+    seconds = time.perf_counter() - t0
+    (OUT_DIR / "phase10_once.log").write_text(out.stdout + out.stderr)
+    check(out.returncode == 0,
+          f"phase 10.1: the process exited {out.returncode}: "
+          f"{out.stderr[-1500:]}")
+    binds = sorted(tuple(json.loads(line[5:]))
+                   for line in out.stdout.splitlines()
+                   if line.startswith("BIND "))
+    result = json.loads(next(line[7:] for line in out.stdout.splitlines()
+                             if line.startswith("RESULT ")))
+    check([b[0] for b in binds] == ["qj-1-p0", "qj-1-p1", "qj-1-p2"],
+          f"phase 10.1: binds {binds}")
+    check(result["backend"] == f"torch-{dev.type}",
+          f"phase 10.1: solved on {result['backend']}")
+    check(dev.type != "cuda" or result["launches"]["bid_dense"] > 0,
+          "phase 10.1: bid_dense never launched")
+    return {"seconds": seconds, "binds": binds, **result}
+
+
+def run_cli_loop(cluster, dev, what, hook=None, timeout_s=300.0):
+    """``cli.run`` in loop mode on ``dev`` over ``cluster``. Every
+    periodic cycle is traced: the launch counters are zeroed just before
+    its ``run_once`` and read just after, with its stats and time. A
+    thread polls ``/debug/vars`` on the metrics port, calls ``hook(sched,
+    vars, cycles)`` on every poll until it returns True, and sets the
+    stop event once ``LOOP_CYCLES`` cycles ran and the hook is done."""
+    from kube_batch_tpu_torch import cli
+
+    port = free_port()
+    opt = cli.ServerOption(scheduler_conf=TPU_CONF,
+                           schedule_period=LOOP_PERIOD,
+                           listen_address=f"127.0.0.1:{port}",
+                           device=dev.type)
+    stop = threading.Event()
+    cycles, failure, polled = [], [], []
+    state = {"sched": None}
+    orig = Scheduler.run_once
+
+    def traced(sched):
+        state["sched"] = sched
+        BK.bid_dense.launches = 0
+        BK.bid_sparse.launches = 0
+        _sync(dev)
+        t0 = time.perf_counter()
+        try:
+            return orig(sched)
+        finally:
+            _sync(dev)
+            ms = (time.perf_counter() - t0) * 1e3
+            rec = RECORDER.snapshot()[-1]
+            cycles.append({
+                "ms": ms, "cycle_ms": rec.get("e2e_ms"),
+                "launches": {"bid_dense": BK.bid_dense.launches,
+                             "bid_sparse": BK.bid_sparse.launches},
+                "stats": dict(ATPU.last_stats),
+            })
+
+    def poll():
+        deadline = time.perf_counter() + timeout_s
+        done = hook is None
+        while not stop.is_set():
+            if time.perf_counter() > deadline:
+                failure.append(f"no end within {timeout_s} s (hook done: "
+                               f"{done}, {len(cycles)} cycles)")
+                break
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}/debug/vars",
+                        timeout=10) as resp:
+                    dvars = json.loads(resp.read())
+            except OSError:
+                time.sleep(0.2)
+                continue
+            polled.append(dvars.get("cycles_recorded"))
+            if not done and state["sched"] is not None:
+                try:
+                    done = hook(state["sched"], dvars, len(cycles))
+                except Exception as exc:  # the phase fails, the loop stops
+                    failure.append(f"hook: {exc!r}")
+                    break
+            if done and len(cycles) >= LOOP_CYCLES:
+                break
+            time.sleep(0.2)
+        stop.set()
+
+    Scheduler.run_once = traced
+    poller = threading.Thread(target=poll, daemon=True, name="smoke-poll")
+    poller.start()
+    t0 = time.perf_counter()
+    try:
+        cli.run(opt, cluster=cluster, stop_event=stop)
+    finally:
+        Scheduler.run_once = orig
+        stop.set()
+        poller.join(timeout=30.0)
+    seconds = time.perf_counter() - t0
+    sched = state["sched"]
+    check(sched is not None, f"{what}: the loop ran no cycle")
+    check(sched.cache.wait_for_side_effects(timeout=600.0),
+          f"{what}: binds did not drain")
+    check(not failure, f"{what}: {failure}")
+    check(polled, f"{what}: /debug/vars never answered")
+    return sched, cycles, seconds
+
+
+def loop_checks(cluster, cycles, kernel, dev, what):
+    """Every cycle healthy on the card, the first one solving with the
+    kernel, the bound gangs whole."""
+    for i, cyc in enumerate(cycles):
+        st = cyc["stats"]
+        check("validation_rejected" not in st,
+              f"{what} cycle {i}: validation rejected placements")
+        check(not st.get("breaker_pinned"), f"{what} cycle {i}: pinned")
+        if "backend" in st:
+            check(st["backend"] == f"torch-{dev.type}",
+                  f"{what} cycle {i}: solved on {st['backend']}")
+    cold = cycles[0]
+    check(cold["stats"].get("warm_outcome") == "cold"
+          and (dev.type != "cuda" or cold["launches"][kernel] > 0),
+          f"{what}: the first cycle did not solve cold with {kernel}: "
+          f"{cold['stats'].get('warm_outcome')}, {cold['launches']}")
+    if kernel == "bid_sparse":
+        check(cold["stats"].get("select_path") == "device",
+              f"{what}: select_path {cold['stats'].get('select_path')}")
+    broken = gangs_whole(cluster)
+    check(not broken, f"{what}: gangs bound below minMember: {broken[:5]}")
+
+
+class TruthInjection:
+    """10.3 inside the 10k x 1k loop. Before the loop: a gang that can
+    never start (minMember 2, one pod) and an empty gang. Once the loop
+    has placed the cluster and every bound pod runs, with the cache's
+    watch detached: a pod created in the empty gang (``missed-pod``)
+    and the blocked pod bound by another agent, its kubelet start
+    included (``missed-bind``). Then the sweep must report both and a
+    later card cycle must bind the missed pod."""
+
+    NS = "truth"
+
+    def __init__(self, cluster):
+        self.cluster = cluster
+        for name, minm in (("blocked", 2), ("late", 1)):
+            cluster.create_pod_group(build_pod_group(
+                name, namespace=self.NS, min_member=minm, queue="q0"))
+        self.blocked = self.pod("blocked")
+        cluster.create_pod(self.blocked)
+        self.step = "wait"
+        self.marks = {}
+
+    def pod(self, group):
+        return build_pod(self.NS, f"{group}-p0", "", PodPhase.PENDING,
+                         build_resource_list(cpu="250m", memory="256Mi"),
+                         group_name=group)
+
+    def settled(self):
+        pods = self.cluster.list_objects("Pod")
+        return all(p.status.phase == PodPhase.RUNNING
+                   for p in pods if p.spec.node_name)
+
+    def __call__(self, sched, dvars, n_cycles):
+        cluster, cache = self.cluster, sched.cache
+        if self.step == "wait" and n_cycles >= 2 and self.settled():
+            handler = cache._on_watch_event
+            cluster.remove_watch(handler)
+            try:
+                cluster.create_pod(self.pod("late"))
+                cluster.bind_pod(self.blocked, "n0")
+                deadline = time.perf_counter() + 30.0
+                while (cluster.get_pod(self.NS, "blocked-p0").status.phase
+                       != PodPhase.RUNNING):
+                    check(time.perf_counter() < deadline,
+                          "phase 10.3: the kubelet never started the pod")
+                    time.sleep(0.01)
+            finally:
+                cluster.add_watch(handler)
+            self.marks["injected_after_cycle"] = n_cycles
+            self.step = "sweep"
+        if self.step == "sweep":
+            seen = (dvars.get("integrity") or {}).get(
+                "divergence_detected") or {}
+            if seen.get("missed-pod") and seen.get("missed-bind"):
+                self.marks.update(detected=seen, swept_by_cycle=n_cycles)
+                self.step = "bind"
+        if self.step == "bind":
+            late = cluster.get_pod(self.NS, "late-p0")
+            if late is not None and late.spec.node_name:
+                self.marks.update(late_bound_by_cycle=n_cycles,
+                                  late_node=late.spec.node_name,
+                                  integrity=dvars.get("integrity"))
+                self.step = "done"
+        return self.step == "done"
+
+
+def recovery_run(dev, lock_dir):
+    """10.3: a successor process (``cli.run --once`` with the file lease)
+    over a cluster holding a fenced predecessor's journal: a gang of 4
+    with 2 members bound and intents for all 4, a stale lease of the
+    predecessor, and a second gang pending. Returns the recovery summary
+    (without its duration), the binds and the cycle's backend."""
+    from kube_batch_tpu_torch import cli
+    from kube_batch_tpu_torch.cache import recovery
+    from kube_batch_tpu_torch.cluster import InProcessCluster
+
+    cluster = InProcessCluster(simulate_kubelet=True)
+    cluster.create_queue(build_queue("default"))
+    for j in range(4):
+        cluster.create_node(build_node(f"r{j}", build_resource_list(
+            cpu="8", memory="16Gi", pods=110)))
+    pods = {}
+    for group, members, minm in (("redo", 4, 4), ("fresh", 3, 3)):
+        cluster.create_pod_group(build_pod_group(
+            group, namespace="rec", min_member=minm, queue="default"))
+        pods[group] = []
+        for i in range(members):
+            pod = build_pod("rec", f"{group}-{i}", "", PodPhase.PENDING,
+                            build_resource_list(cpu="500m", memory="512Mi"),
+                            group_name=group)
+            cluster.create_pod(pod)
+            pods[group].append(pod)
+    for pod in pods["redo"][:2]:
+        cluster.bind_pod(pod, "r0")
+    cluster.append_bind_intent({
+        "leader": "dead-0",
+        "tasks": [{"uid": p.uid, "pod": f"rec/{p.name}", "node": n,
+                   "job": "rec/redo"}
+                  for p, n in zip(pods["redo"], ["r0", "r0", "r1", "r1"])],
+        "gangs": {"rec/redo": 4},
+    })
+    lock_dir.mkdir(parents=True, exist_ok=True)
+    (lock_dir / "tpu-batch-leader.lock").write_text(json.dumps(
+        {"holder": "dead-0", "renew_ts": time.time() - 3600.0}))
+    opt = cli.ServerOption(once=True, enable_leader_election=True,
+                           lock_object_namespace=str(lock_dir),
+                           scheduler_conf=TPU_CONF, device=dev.type,
+                           listen_address="127.0.0.1:0")
+    recovery.LAST_RECOVERY = None
+    BK.bid_dense.launches = 0
+    BK.bid_sparse.launches = 0
+    cli.run(opt, cluster=cluster)
+    launches = {"bid_dense": BK.bid_dense.launches,
+                "bid_sparse": BK.bid_sparse.launches}
+    summary = dict(recovery.LAST_RECOVERY or {})
+    summary.pop("duration_ms", None)
+    return {"summary": summary, "binds": truth_binds(cluster, "rec"),
+            "backend": ATPU.last_stats.get("backend"),
+            "launches": launches}
+
+
+def run_phase10(dev):
+    """Phase 10: the process on the card."""
+    out = {}
+    cpu = torch.device("cpu")
+    out["once"] = run_once_subprocess(dev)
+    log(f"phase 10.1: python -m kube_batch_tpu_torch --once bound "
+        f"{out['once']['binds']} on {out['once']['backend']} in "
+        f"{out['once']['seconds']:.1f} s, launches "
+        f"{out['once']['launches']}")
+
+    # 10.2 and 10.3: the loop at both sizes, cluster truth at 10k x 1k.
+    # Periodic cycles only (micro cycles would place the repaired pod
+    # outside the traced run_once); the 10k x 1k loop sweeps every cycle.
+    with environ(KBT_MICRO="0"):
+        for name, shape, kernel, _rung in SCHED_CLUSTERS:
+            what = f"phase 10.2 {name}"
+            t0 = time.perf_counter()
+            cluster = build_in_process_cluster(*shape, seed=0)
+            fill_s = time.perf_counter() - t0
+            truth = kernel == "bid_dense"
+            inject = TruthInjection(cluster) if truth else None
+            with environ(KBT_ANTIENTROPY_EVERY="1" if truth else "256"):
+                sched, cycles, seconds = run_cli_loop(cluster, dev, what,
+                                                      hook=inject)
+            loop_checks(cluster, cycles, kernel, dev, what)
+            binds = truth_binds(cluster)
+            want = PHASE8_CPU_BINDS[name]
+            check(binds == want,
+                  f"{what}: the process bound {len(binds)} pods, phase 8's "
+                  f"CPU run {len(want)} after its idle cycle; the (pod, "
+                  f"node) sets differ")
+            rec = {"fill_s": fill_s, "seconds": seconds, "binds": len(binds),
+                   "cycles": [{
+                       "ms": round(c["ms"], 3),
+                       "cycle_ms": c["cycle_ms"],
+                       "warm": c["stats"].get("warm_outcome"),
+                       "placed": c["stats"].get("placed"),
+                       "select_path": c["stats"].get("select_path"),
+                       "launches": c["launches"],
+                       "ms_by_phase": {k: round(c["stats"][k], 3)
+                                       for k in STAT_PHASES
+                                       if k in c["stats"]},
+                   } for c in cycles]}
+            if inject is not None:
+                marks = inject.marks
+                check(inject.step == "done", f"phase 10.3: {inject.step}")
+                # The sweep opens the cycle that follows the injection,
+                # before its session: that cycle or a later one binds.
+                after = [c for c in cycles[marks["injected_after_cycle"]:]
+                         if c["stats"].get("placed")]
+                check(after
+                      and after[0]["stats"]["backend"] == f"torch-{dev.type}"
+                      and (dev.type != "cuda"
+                           or after[0]["launches"]["bid_dense"] > 0),
+                      f"phase 10.3: the missed pod was not bound by a card "
+                      f"cycle: {marks}, cycles "
+                      f"{[(c['stats'].get('warm_outcome'), c['stats'].get('placed'), c['stats'].get('backend')) for c in cycles]}")
+                rec["truth"] = {k: v for k, v in marks.items()
+                                if k != "integrity"}
+                rec["truth"]["integrity"] = {
+                    k: marks["integrity"].get(k) for k in (
+                        "sweeps", "divergence_detected",
+                        "divergence_repaired")}
+                log(f"phase 10.3: sweep detected {marks['detected']}; the "
+                    f"missed pod bound on the card by cycle "
+                    f"{marks['late_bound_by_cycle']}")
+            sched.cache.shutdown()
+            del cluster, sched
+            gc.collect()
+            out[name] = rec
+            log(f"{what}: {len(cycles)} cycles in {seconds:.1f} s (fill "
+                f"{fill_s:.1f} s), {len(binds)} binds = phase 8's CPU "
+                f"binds; {json.dumps(rec['cycles'])}")
+
+    # 10.3: journal recovery by a successor, on the CPU and on the card.
+    lease = OUT_DIR / "phase10_lease"
+    ref = recovery_run(cpu, lease / "cpu")
+    got = recovery_run(dev, lease / "card")
+    check(got["summary"] == ref["summary"] and got["binds"] == ref["binds"],
+          f"phase 10.3: recovery on the card {got} differs from the CPU's "
+          f"{ref}")
+    check(got["summary"].get("outcomes") == {"applied": 2, "redriven": 2},
+          f"phase 10.3: recovery outcomes {got['summary'].get('outcomes')}")
+    check(len(got["binds"]) == 7 and got["backend"] == f"torch-{dev.type}"
+          and (dev.type != "cuda" or got["launches"]["bid_dense"] > 0),
+          f"phase 10.3: the successor's card cycle: {got}")
+    out["recovery"] = got
+    log(f"phase 10.3: reconcile_journal on the card = the CPU's "
+        f"({got['summary']['outcomes']}); the successor bound "
+        f"{len(got['binds'])} pods on {got['backend']}")
+    return out
 
 
 def main() -> int:
@@ -1538,6 +2074,9 @@ def main() -> int:
 
     # -- phase 9: the ladder on the card ---------------------------------------
     report["ladder"] = run_phase9(dev)
+
+    # -- phase 10: the process on the card ----------------------------------
+    report["process"] = run_phase10(dev)
     report["seconds"] = time.perf_counter() - t0
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     log(f"all phases passed in {report['seconds']:.1f} s")

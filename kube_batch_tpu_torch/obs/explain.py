@@ -9,8 +9,7 @@ Two granularities:
   representative pending task, the queue's overused state, gang
   readiness after apply, and the sparse solve's truncation flags.
   Stored in a process-wide registry keyed by job uid (the
-  reference's ``/debug/jobs`` endpoint and ``explain`` CLI read it;
-  neither is ported yet), stamped
+  ``/debug/jobs`` endpoint and the ``explain`` CLI read it), stamped
   onto the session JobInfo as ``last_unschedulable``, and exported as
   the reason-labeled ``tpu_batch_unschedulable_tasks`` metric.
 
@@ -508,3 +507,111 @@ def format_diagnosis(diag: dict) -> str:
     else:
         lines.append("  no solver verdict recorded yet for this job")
     return "\n".join(lines)
+
+
+# ------------------------------------------------------------------- CLI
+
+
+def cli_main(argv: Optional[List[str]] = None) -> int:
+    """``python -m kube_batch_tpu_torch explain <ns/name>``.
+
+    Two modes: ``--server host:port`` queries a live scheduler's
+    ``/debug/jobs`` endpoint; ``--cluster-state file.yaml`` loads the
+    cluster, opens one diagnostic session with the default plugin
+    tiers, and runs the full per-predicate walk offline."""
+    import argparse
+
+    parser = argparse.ArgumentParser(
+        prog="tpu-batch explain",
+        description="explain why a job/gang is not scheduled",
+    )
+    parser.add_argument(
+        "job", help="job as <namespace>/<name> (PodGroup name)"
+    )
+    parser.add_argument(
+        "--server", default=None, metavar="HOST:PORT",
+        help="query a running scheduler's /debug/jobs endpoint",
+    )
+    parser.add_argument(
+        "--cluster-state", default=None, metavar="PATH",
+        help="offline: load this cluster-state YAML and diagnose "
+             "in-process",
+    )
+    parser.add_argument(
+        "--scheduler-conf", default=None, metavar="PATH",
+        help="scheduler policy YAML for the offline diagnosis tiers",
+    )
+    parser.add_argument("--json", action="store_true",
+                        help="print the raw JSON instead of prose")
+    ns = parser.parse_args(argv)
+
+    if "/" not in ns.job:
+        ns.job = f"default/{ns.job}"
+
+    if ns.server:
+        import urllib.request
+
+        url = f"http://{ns.server}/debug/jobs/{ns.job}"
+        try:
+            with urllib.request.urlopen(url, timeout=10) as resp:
+                payload = json.loads(resp.read().decode())
+        except Exception as exc:
+            print(f"explain: failed to query {url}: {exc}")
+            return 2
+        if ns.json:
+            print(json.dumps(payload, indent=2, sort_keys=True))
+        else:
+            verdict = payload.get("verdict") or payload
+            print(
+                f"job {ns.job}: {verdict.get('reason', 'unknown')} — "
+                f"{verdict.get('message', '')}"
+            )
+            for key, value in sorted(
+                (verdict.get("detail") or {}).items()
+            ):
+                print(f"  {key}: {value}")
+        return 0
+
+    if not ns.cluster_state:
+        print("explain: need --server or --cluster-state")
+        return 2
+
+    from ..cache import new_scheduler_cache
+    from ..cli.state import load_cluster_state
+    from ..framework import close_session, open_session
+    from ..scheduler import load_scheduler_conf
+
+    import threading as _threading
+
+    cluster = load_cluster_state(ns.cluster_state)
+    cache = new_scheduler_cache(cluster, "tpu-batch", "default")
+    conf = None
+    if ns.scheduler_conf:
+        with open(ns.scheduler_conf) as f:
+            conf = f.read()
+    from ..conf import DEFAULT_SCHEDULER_CONF
+
+    _actions, tiers = load_scheduler_conf(conf or DEFAULT_SCHEDULER_CONF)
+    stop = _threading.Event()
+    try:
+        cache.run(stop)
+        cache.wait_for_cache_sync(stop)
+        ssn = open_session(cache, tiers)
+        try:
+            job = ssn.jobs.get(ns.job)
+            if job is None:
+                print(f"explain: job {ns.job} not found "
+                      f"(known: {sorted(ssn.jobs)[:10]})")
+                return 3
+            diag = diagnose_job(ssn, job)
+        finally:
+            close_session(ssn)
+    finally:
+        stop.set()
+        cache.shutdown()
+
+    if ns.json:
+        print(json.dumps(diag, indent=2, sort_keys=True))
+    else:
+        print(format_diagnosis(diag))
+    return 0

@@ -9,8 +9,7 @@ A copy of the reference's ``scheduler.py``. The one addition is the
 device: ``Scheduler(..., device=None)`` resolves it like every entry
 point of the port (``cuda`` unless ``"cpu"`` is asked for; a raise when
 there is no CUDA) and sets it on the ``allocate_tpu`` action its policy
-names. ``recover_from_journal`` imports ``cache/recovery.py``, which is
-not ported yet (only the CLI calls it).
+names.
 """
 
 from __future__ import annotations

@@ -29,6 +29,11 @@ exactly as the reference buckets it for its jitted scatter, so
 ``last_pack_stats`` (bytes shipped included) reads the same on the same
 sequence; only the first ``rows`` entries of the bucket are written.
 
+:meth:`DeviceSnapshotCache.pack_partial` places the node stacks and the
+group rows ahead of the full pack, for device-resident selection
+(``select_device.py``); the full pack reuses them and folds the
+partial's traffic into its own stats.
+
 The device is fixed when :func:`device_cache_of` first creates the
 cache (``cuda`` unless the caller asks for ``"cpu"``). The port has one
 device layout, so there is no layout token: the reference's sharded
@@ -106,7 +111,7 @@ class DeviceSnapshotCache:
     attribute), giving it exactly the lifetime of the mirror it
     shadows — same pattern as ``snapshot._TensorizeCache``."""
 
-    __slots__ = ("device", "host", "dev", "drop_reason")
+    __slots__ = ("device", "host", "dev", "drop_reason", "_deferred")
 
     def __init__(self, device=None):
         self.device = resolve_device(device)
@@ -116,6 +121,9 @@ class DeviceSnapshotCache:
         self.dev: Dict[str, torch.Tensor] = {}
         # Label of the next pack's uploads after a drop (None: "cold").
         self.drop_reason: Optional[str] = None
+        # Stats of a pack_partial() awaiting merge into the next pack()
+        # (the two are one logical pack per cycle).
+        self._deferred: Optional[dict] = None
 
     def drop(self, reason: Optional[str] = None) -> None:
         """Release every resident buffer (shutdown, tests, and an
@@ -214,6 +222,46 @@ class DeviceSnapshotCache:
             return self._upload(name, arr, "bulk-dirty", stats)
         return self._patch(name, arr, rows, stats)
 
+    @staticmethod
+    def _empty_stats() -> dict:
+        return {
+            "reuses": 0,
+            "patches": 0,
+            "uploads": 0,
+            "rows_patched": 0,
+            "bytes_shipped": 0,
+            "slab_bytes_shipped": 0,
+            "bytes_total": 0,
+            "full_reasons": {},
+            "field_outcomes": {},
+        }
+
+    def pack_partial(self, arrays: Dict[str, np.ndarray]
+                     ) -> Dict[str, torch.Tensor]:
+        """Place a SUBSET of the cycle's stacked fields on the device
+        ahead of the full :meth:`pack`: device-resident selection
+        (``select_device.py``) reads the node stacks and group rows
+        BEFORE the candidate slabs it produces exist. The later pack()
+        sees bit-identical host arrays and reuses these buffers; the
+        traffic stats here are deferred and merged into that pack's
+        ledger, so the cycle's accounting stays whole."""
+        stats = self._empty_stats()
+        out = {
+            name: self._pack_field(name, arr, stats)
+            for name, arr in arrays.items()
+        }
+        if self._deferred is None:
+            self._deferred = stats
+        else:  # two partials before a pack: fold counters forward
+            for key in ("patches", "uploads", "rows_patched",
+                        "bytes_shipped"):
+                self._deferred[key] += stats[key]
+            self._deferred["full_reasons"].update(stats["full_reasons"])
+            self._deferred["field_outcomes"].update(
+                stats["field_outcomes"]
+            )
+        return out
+
     def pack(self, arrays: Dict[str, np.ndarray]):
         """Build a :class:`~.kernels.PackedInputs` from stacked host
         arrays (``snapshot.stack_inputs``), reusing/patching resident
@@ -225,17 +273,7 @@ class DeviceSnapshotCache:
         if contracts_enabled():
             validate_packed(arrays, where="device_cache.pack")
 
-        stats = {
-            "reuses": 0,
-            "patches": 0,
-            "uploads": 0,
-            "rows_patched": 0,
-            "bytes_shipped": 0,
-            "slab_bytes_shipped": 0,
-            "bytes_total": 0,
-            "full_reasons": {},
-            "field_outcomes": {},
-        }
+        stats = self._empty_stats()
         fields: Dict[str, torch.Tensor] = {}
         for name, arr in arrays.items():
             stats["bytes_total"] += arr.nbytes
@@ -246,6 +284,21 @@ class DeviceSnapshotCache:
                     stats["bytes_shipped"] - shipped_before
                 )
 
+        # Fold in a preceding pack_partial (same cycle, same logical
+        # pack): its uploads and patches are real traffic; a field it
+        # already placed shows as "reuse" above, so surface the partial
+        # outcome instead.
+        deferred, self._deferred = self._deferred, None
+        if deferred is not None:
+            for key in ("patches", "uploads", "rows_patched",
+                        "bytes_shipped"):
+                stats[key] += deferred[key]
+            stats["full_reasons"].update(deferred["full_reasons"])
+            for f, outcome in deferred["field_outcomes"].items():
+                if outcome != "reuse":
+                    if stats["field_outcomes"].get(f) == "reuse":
+                        stats["reuses"] -= 1
+                    stats["field_outcomes"][f] = outcome
         self.drop_reason = None
         last_pack_stats.clear()
         last_pack_stats.update(stats)
@@ -280,9 +333,14 @@ def device_cache_of(cache, device=None) -> Optional[DeviceSnapshotCache]:
 
 
 def drop_resident(cache, reason: str) -> None:
-    """Drop the scheduler cache's resident buffers, if it has any; the
-    next pack is a full upload labelled ``reason`` (see
-    :meth:`DeviceSnapshotCache.drop`)."""
+    """Drop the scheduler cache's resident buffers, if it has any, and
+    the selection engine's key matrix with them; the next pack is a full
+    upload labelled ``reason`` (see :meth:`DeviceSnapshotCache.drop`)
+    and the next device selection rebuilds every row, so nothing an
+    abandoned solve may still hold is patched."""
+    from .select_device import invalidate_engine
+
     dc = getattr(cache, "_torch_device_cache", None)
     if dc is not None:
         dc.drop(reason)
+    invalidate_engine(cache)

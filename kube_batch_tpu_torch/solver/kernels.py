@@ -1037,11 +1037,14 @@ def jit_compilation_count() -> int:
     """Counterpart of the reference's compiled-variant census: how many
     times this process asked for the bid library to be built
     (``_build.build``, once from the first ``load_library`` on a card,
-    plus any direct caller such as ``chip_smoke.py``). It is 0 until a
-    kernel first launches on a card, so it stays 0 on the CPU. The
-    port's solve runs eager torch ops with no per-shape compilation, so
-    this census, like the reference's, must stay flat across steady
-    cycles; growth would mean a build per cycle."""
+    plus any direct caller such as ``chip_smoke.py``), plus the distinct
+    shape buckets device-resident selection has minted (top-K, row and
+    column variants, ``select_device.census``), as the reference adds
+    its selection jits. The port's solve runs eager torch ops with no
+    per-shape compilation, so this census, like the reference's, must
+    stay flat across steady cycles once the buckets are warm; growth
+    would mean a build per cycle or a shape drifting per cycle."""
     from . import _build
+    from .select_device import census
 
-    return _build.build_calls
+    return _build.build_calls + census()

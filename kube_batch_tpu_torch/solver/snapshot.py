@@ -1075,15 +1075,43 @@ def tensorize(
     # --- top-K candidate selection (solver/topk.py) -----------------------
     # Phase 1 of the sparse solve: dedup tasks into candidate classes
     # and keep each class's top-K nodes by the fused feasibility +
-    # initial-idle score pass, against the UNPADDED node arrays; the
+    # initial-idle score pass. Runs against the UNPADDED node arrays
+    # (host path) or the padded resident stacks (device path); the
     # slabs are padded/bucketed below with everything else.
     from .topk import select_candidates, topk_config
 
     tk = topk_config(T, N)
     cand_sel = None
     sparse_reason = tk.reason
-    # Selection always runs on the host here: the reference's device-
-    # resident selection is bit-equal to it by that package's contract.
+    device_state = None
+    named = None if device is True else device
+    if device and tk.enabled:
+        from .device_cache import device_cache_of
+        from .select_device import SelectionDeviceState, device_select_enabled
+
+        dc0 = device_cache_of(ssn.cache, named)
+        if (
+            dc0 is not None
+            and device_select_enabled()
+            and not bool(node_rel64.any())
+        ):
+            try:
+                placed = dc0.pack_partial({
+                    "node_f32": node_f32_stack,
+                    "node_i32": node_i32_stack,
+                    "group_feas": group_feas,
+                })
+                device_state = SelectionDeviceState(
+                    ssn.cache, placed["node_f32"], placed["node_i32"],
+                    placed["group_feas"], Np,
+                )
+            except Exception:
+                # Labelled, never quiet: select_path reads
+                # host:device-unavailable for this cycle.
+                logger.exception("device-selection pre-pack failed")
+                device_state = SelectionDeviceState(
+                    ssn.cache, None, None, None, Np
+                )
     if tk.enabled:
         with _span("topk_select", k=tk.k):
             cand_sel = select_candidates(
@@ -1097,6 +1125,7 @@ def tensorize(
                     if scan is not None and scan.nodes is nodes
                     else None
                 ),
+                device_state=device_state,
             )
         if cand_sel is None:
             sparse_reason = "class-budget"
@@ -1244,7 +1273,6 @@ def tensorize(
     from .device_cache import device_cache_of
 
     stacked = stack_inputs(host_inputs)
-    named = None if device is True else device
     dc = device_cache_of(ssn.cache, named)
     if dc is not None:
         return dc.pack(stacked), ctx

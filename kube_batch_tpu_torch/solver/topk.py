@@ -12,9 +12,14 @@ idle, pod-count capacity open) has at most K nodes gets a complete slab
 A cross-cycle cache on the scheduler cache (``_SelectionCache``) keeps
 each class's integer key row and the class dedup between cycles, so a
 steady cycle recomputes only the columns of nodes that changed; cached
-and fresh selections are bit-identical by construction. Selection always
-runs on the host: the reference's device-resident selection is bit-equal
-to it by that package's contract and is not ported.
+and fresh selections are bit-identical by construction.
+
+Given a ``device_state`` (``select_device.SelectionDeviceState``), the
+scoring, key rows and top-K run on the device instead
+(``select_device.select_rows``), bit-equal to this host path, which
+stays the labelled fallback: ``select_path`` reads ``device``,
+``host:env-disabled`` (``KBT_SELECT_DEVICE=0``), ``host:releasing`` or
+``host:device-unavailable``, and ``host`` when no device state was given.
 
 ``KBT_SOLVER_TOPK`` overrides the policy: an integer forces that K at
 any problem size; ``0``/``off``/``dense`` disables sparsification.
@@ -256,12 +261,15 @@ def select_candidates(
     cache_holder: Optional[object] = None,
     # (ids i64[N], vers i64[N], [NodeInfo] pins) or None
     node_fp: Optional[tuple] = None,
+    # select_device.SelectionDeviceState or None
+    device_state: Optional[object] = None,
 ) -> Optional[CandidateSet]:
     """Run the fused feasibility + static-score selection pass.
 
     ``cache_holder`` (the scheduler cache) carries the cross-cycle
     selection cache; ``node_fp`` is the node scan's fingerprint, without
-    which key rows are not reused. Returns None (dense solve) when class
+    which key rows are not reused; ``device_state`` routes the pass to
+    the device (module docstring). Returns None (dense solve) when class
     dedup degenerates past the selection budget."""
     T, R = task_req.shape
     N = node_idle.shape[0]
@@ -316,6 +324,73 @@ def select_candidates(
     cand_idx = np.full((C, k), N, np.int32)
     cand_static = np.zeros((C, k), np.float32)
     cand_info = np.zeros((3, C), np.int32)
+
+    def _mk_stats(cache_hits_, extra):
+        slab_bytes = (
+            cand_idx.nbytes + cand_static.nbytes + cand_info.nbytes
+            + task_cand.nbytes
+        )
+        stats = {
+            "classes": int(C),
+            "k": int(k),
+            "slab_bytes": int(slab_bytes),
+            "dense_mask_bytes": int(T) * int(N),
+            "dense_score_bytes": int(T) * int(N) * 4,
+            "truncated_classes": int((cand_info[0] > k).sum()),
+            "sel_cache_hits": int(cache_hits_),
+        }
+        stats.update(extra)
+        return stats
+
+    # --- device-resident selection (select_device.py) -------------------
+    # Scores, key rows and the top-K extraction run on the device
+    # against the resident node stacks; everything below this branch is
+    # the host path, bit-equal by construction and the labelled fallback.
+    dev_res = None
+    select_path = "host"
+    if device_state is not None:
+        from .select_device import device_select_enabled, select_rows
+
+        if not device_select_enabled():
+            select_path = "host:env-disabled"
+        elif has_releasing:
+            select_path = "host:releasing"
+        elif device_state.node_f32 is None:
+            # The pre-pack of the node stacks failed (logged there).
+            select_path = "host:device-unavailable"
+        else:
+            dev_res = select_rows(
+                device_state, mask, rep_idx, rep_req, rep_fit, rep_priv,
+                score_rows_map, idle32, cap32, eps32, cap_ok0,
+                lr_weight, br_weight, k, N, node_fp=node_fp,
+            )
+            select_path = "device"
+    if dev_res is not None:
+        cand_idx = dev_res["cand_idx"]
+        cand_info[0] = np.minimum(
+            dev_res["elig_count"], np.iinfo(np.int32).max
+        )
+        cand_info[1] = dev_res["any_feas"]
+        # Private static rows ride the slab exactly like the host path.
+        for ci in np.nonzero(rep_priv >= 0)[0]:
+            p = int(rep_priv[ci])
+            if p not in score_rows_map:
+                continue
+            srow = np.asarray(score_rows_map[p], np.float32)
+            row = cand_idx[ci]
+            sel = row < N
+            cand_static[ci, sel] = srow[row[sel]]
+        from .. import metrics
+
+        metrics.register_device_selection()
+        stats = _mk_stats(dev_res["cache_hits"], {
+            "select_path": select_path,
+            "sel_rows_rebuilt": int(dev_res["rows_rebuilt"]),
+            "sel_cols_patched": int(dev_res["cols_patched"]),
+        })
+        return CandidateSet(
+            task_cand, cand_idx, cand_static, cand_info, stats
+        )
 
     # Cross-cycle key-row cache: usable only with a node fingerprint and
     # no Releasing capacity (the releasing column is not cached). The
@@ -460,18 +535,5 @@ def select_candidates(
     if sc is not None and not has_releasing:
         sc.rows = new_rows
 
-    slab_bytes = (
-        cand_idx.nbytes + cand_static.nbytes + cand_info.nbytes
-        + task_cand.nbytes
-    )
-    stats = {
-        "classes": int(C),
-        "k": int(k),
-        "slab_bytes": int(slab_bytes),
-        "dense_mask_bytes": int(T) * int(N),
-        "dense_score_bytes": int(T) * int(N) * 4,
-        "truncated_classes": int((cand_info[0] > k).sum()),
-        "sel_cache_hits": int(cache_hits),
-        "select_path": "host",
-    }
+    stats = _mk_stats(cache_hits, {"select_path": select_path})
     return CandidateSet(task_cand, cand_idx, cand_static, cand_info, stats)

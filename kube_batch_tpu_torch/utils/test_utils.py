@@ -6,9 +6,10 @@ Mirrors reference pkg/scheduler/util/test_utils.go:
   FakeStatusUpdater/FakeVolumeBinder no-op (:136-163).
 Used by both the test suite and the synthetic benchmark generators.
 
-``build_cluster`` is a copy of the reference's ``bench.py`` generator
+``bench_objects`` is a copy of the reference's ``bench.py`` generator
 (the same RNG draws in the same order, so one seed gives the same
-cluster in both packages); ``make_tiers`` builds plugin tiers as the
+cluster in both packages), filled into a cache by ``build_cluster`` and
+into an in-process cluster by ``build_in_process_cluster``; ``make_tiers`` builds plugin tiers as the
 reference's tests do, and ``DEFAULT_TIERS_ARGS`` names the default
 tiers (``bench.py``'s ``TIERS_ARGS``).
 """
@@ -188,29 +189,22 @@ def make_tiers(*names_per_tier):
     return tiers
 
 
-def build_cluster(n_tasks, n_nodes, n_queues, n_groups, seed=0):
-    """A ``SchedulerCache`` holding the synthetic benchmark cluster:
-    ``n_nodes`` nodes of 32 CPU / 128 Gi / 110 pods, ``n_queues``
-    weighted queues and ``n_groups`` gangs of ``n_tasks // n_groups``
-    pending pods with seeded CPU and memory requests."""
+def bench_objects(n_tasks, n_nodes, n_queues, n_groups, seed=0):
+    """The synthetic benchmark cluster as ``(kind, object)`` pairs, in
+    creation order: ``n_nodes`` nodes of 32 CPU / 128 Gi / 110 pods,
+    ``n_queues`` weighted queues and ``n_groups`` gangs of ``n_tasks //
+    n_groups`` pending pods with seeded CPU and memory requests."""
     import numpy as np
 
     from ..api import PodPhase, build_resource_list
-    from ..cache import SchedulerCache
 
     rng = np.random.RandomState(seed)
-    cache = SchedulerCache(
-        binder=FakeBinder(),
-        evictor=FakeEvictor(),
-        status_updater=FakeStatusUpdater(),
-        volume_binder=FakeVolumeBinder(),
-    )
     for q in range(n_queues):
-        cache.add_queue(build_queue(f"q{q}", weight=q + 1))
+        yield "Queue", build_queue(f"q{q}", weight=q + 1)
     for j in range(n_nodes):
-        cache.add_node(build_node(
+        yield "Node", build_node(
             f"n{j}", build_resource_list(cpu="32", memory="128Gi", pods=110)
-        ))
+        )
     per_group = n_tasks // n_groups
     cpus = rng.choice([250, 500, 1000, 2000, 4000], size=n_tasks)
     mems = rng.choice([256, 512, 1024, 4096, 8192], size=n_tasks)
@@ -218,19 +212,49 @@ def build_cluster(n_tasks, n_nodes, n_queues, n_groups, seed=0):
     for g in range(n_groups):
         queue = f"q{g % n_queues}"
         min_member = int(rng.randint(1, per_group + 1))
-        cache.add_pod_group(build_pod_group(
+        yield "PodGroup", build_pod_group(
             f"pg{g}", namespace="bench", min_member=min_member, queue=queue
-        ))
+        )
         for i in range(per_group):
-            cache.add_pod(build_pod(
+            yield "Pod", build_pod(
                 "bench", f"pg{g}-p{i}", "", PodPhase.PENDING,
                 build_resource_list(
                     cpu=f"{int(cpus[t])}m", memory=f"{int(mems[t])}Mi"
                 ),
                 group_name=f"pg{g}",
-            ))
+            )
             t += 1
+
+
+def build_cluster(n_tasks, n_nodes, n_queues, n_groups, seed=0):
+    """A ``SchedulerCache`` holding :func:`bench_objects`' cluster."""
+    from ..cache import SchedulerCache
+
+    cache = SchedulerCache(
+        binder=FakeBinder(),
+        evictor=FakeEvictor(),
+        status_updater=FakeStatusUpdater(),
+        volume_binder=FakeVolumeBinder(),
+    )
+    add = {"Queue": cache.add_queue, "Node": cache.add_node,
+           "PodGroup": cache.add_pod_group, "Pod": cache.add_pod}
+    for kind, obj in bench_objects(n_tasks, n_nodes, n_queues, n_groups,
+                                   seed):
+        add[kind](obj)
     return cache
+
+
+def build_in_process_cluster(n_tasks, n_nodes, n_queues, n_groups, seed=0,
+                             simulate_kubelet=True):
+    """An ``InProcessCluster`` holding :func:`bench_objects`' cluster,
+    for the process entry point (``cli.run(opt, cluster=...)``)."""
+    from ..cluster import InProcessCluster
+
+    cluster = InProcessCluster(simulate_kubelet=simulate_kubelet)
+    for kind, obj in bench_objects(n_tasks, n_nodes, n_queues, n_groups,
+                                   seed):
+        cluster.create(kind, obj)
+    return cluster
 
 
 def add_gang_burst(cache, rng, prefix, groups, per_group, n_queues):

@@ -22,31 +22,76 @@ from tests.test_torch_solver import snapshot_mixed
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PKG = pathlib.Path(kube_batch_tpu_torch.__file__).parent
 
+# Modules of the process layer and of cluster truth and device-resident
+# selection, named so a walk that skipped them would fail.
+SLICE_MODULES = (
+    "kube_batch_tpu_torch.__main__",
+    "kube_batch_tpu_torch.version",
+    "kube_batch_tpu_torch.cli",
+    "kube_batch_tpu_torch.cli.options",
+    "kube_batch_tpu_torch.cli.state",
+    "kube_batch_tpu_torch.cli.manifests",
+    "kube_batch_tpu_torch.cli.server",
+    "kube_batch_tpu_torch.cache.antientropy",
+    "kube_batch_tpu_torch.cache.recovery",
+    "kube_batch_tpu_torch.solver.select_device",
+)
+
+_BAD = """
+bad = sorted(n for n in sys.modules
+             if n == "jax" or n.startswith(("jax.", "jaxlib"))
+             or n == "kube_batch_tpu" or n.startswith("kube_batch_tpu.")
+             or n == "yaml" or n.startswith("yaml."))
+print("LOADED", sorted(n for n in sys.modules
+                       if n.startswith("kube_batch_tpu_torch")))
+print("BAD", bad)
+"""
+
 _PROBE = """
 import importlib, pkgutil, sys
 import kube_batch_tpu_torch as pkg
 for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(m.name)
-bad = sorted(n for n in sys.modules
-             if n == "jax" or n.startswith(("jax.", "jaxlib"))
-             or n == "kube_batch_tpu" or n.startswith("kube_batch_tpu.")
-             or n == "yaml" or n.startswith("yaml."))
-print("LOADED", len([n for n in sys.modules
-                     if n.startswith("kube_batch_tpu_torch")]))
-print("BAD", bad)
-"""
+""" + _BAD
+
+# ``python -m kube_batch_tpu_torch --version``, in the same process as
+# the check of what it loaded.
+_VERSION_PROBE = """
+import runpy, sys
+sys.argv = ["kube_batch_tpu_torch", "--version"]
+try:
+    runpy.run_module("kube_batch_tpu_torch", run_name="__main__")
+except SystemExit as exc:
+    assert exc.code == 0, exc.code
+""" + _BAD
 
 
-def test_imports_load_no_jax_and_no_jax_package():
+def run_probe(script):
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run(
-        [sys.executable, "-c", _PROBE], capture_output=True, text=True,
+        [sys.executable, "-c", script], capture_output=True, text=True,
         cwd=REPO, env=env, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    lines = dict(line.split(" ", 1) for line in out.stdout.splitlines())
-    assert int(lines["LOADED"]) >= 10
-    assert lines["BAD"] == "[]"
+    lines = dict(line.split(" ", 1) for line in out.stdout.splitlines()
+                 if line.startswith(("LOADED ", "BAD ")))
+    return eval(lines["LOADED"]), lines["BAD"], out.stdout
+
+
+def test_imports_load_no_jax_and_no_jax_package():
+    loaded, bad, _ = run_probe(_PROBE)
+    assert len(loaded) >= 10
+    assert set(SLICE_MODULES) <= set(loaded)
+    assert bad == "[]"
+
+
+def test_the_process_entry_point_loads_no_jax():
+    """``python -m kube_batch_tpu_torch --version`` prints the banner
+    and loads neither JAX, the JAX package nor PyYAML."""
+    loaded, bad, stdout = run_probe(_VERSION_PROBE)
+    assert "tpu-batch version" in stdout and "torch:" in stdout
+    assert "kube_batch_tpu_torch.cli" in loaded
+    assert bad == "[]"
 
 
 def test_sources_import_neither():
@@ -54,6 +99,10 @@ def test_sources_import_neither():
         r"^\s*(import|from)\s+(jax|jaxlib)\b|kube_batch_tpu\.", re.M
     )
     files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    scanned = {str(f.relative_to(REPO)) for f in files}
+    for mod in SLICE_MODULES:
+        rel = mod.replace(".", "/")
+        assert f"{rel}.py" in scanned or f"{rel}/__init__.py" in scanned, mod
     for path in files:
         hits = pattern.findall(path.read_text())
         assert not hits, f"{path}: {hits}"
