@@ -90,12 +90,34 @@ phase fails. Phases:
    ``missed-bind`` and a card cycle binds the pod; a successor process
    (``--once``, file lease) over a fenced predecessor's bind-intent
    journal reports the CPU run's ``reconcile_journal`` and binds on the
-   card.
+   card;
+11. the simulator (``kube_batch_tpu_torch.sim.ClusterSimulator``), each
+   run once on the card and once on the CPU in this process: (1) the
+   reference's smoke seeds (seed 5, 60 cycles, 10 nodes, bind and
+   node-flap faults, dense): card trace = CPU trace (records after the
+   header, quality cards through ``replay_view``, integrity blocks
+   aside), ``bid_dense`` launched; its replay on the card under sparse
+   K=16 has no mismatch and launches ``bid_sparse``; (2) the Makefile's
+   chaos and diverge mixes (seeds 11 and 15, 120 cycles, dense) and a
+   failover drill (seed 13, 70 cycles, a leader killed at each of the
+   four cut points, hangs added): no violation or cycle error, every
+   fault kind injected, the breaker re-closed, card placements = CPU
+   placements, every timed-out solve drops its leader's resident
+   buffers, the successors solve on the card; (3) 5,000 nodes of
+   ``bench.py::build_cluster``'s shape, 400 gang arrivals a cycle, up to
+   4,000 jobs, bind faults, ``auto``, 16 cycles (24 cost 142 s a
+   device, most of it the harness's host work): card trace = CPU trace,
+   ``bid_sparse`` launched, selection on the device; per cycle the
+   ``run_once`` time, the solve time and the placements. A failed check
+   of phase 11 is kept and the phase goes on; it fails at its end.
+   ``python3 chip_smoke.py --phase 11`` runs phases 1 and 11 alone and
+   prints no result line.
 
 Each phase sets the kernels' launch counters to 0 just before it drives
 the path and reads them just after (phase 7: around each cycle, from
 ``open_session`` to the solve; phases 8 and 10: around each
-``run_once``; 10.1: the subprocess starts from 0). The
+``run_once``; 10.1: the subprocess starts from 0; phase 11: after
+each simulator's construction, whose warm-up solves launch both). The
 kernels' ``launches`` in the JSON record are phase 8's first card run
 (the four cycles at the kernel's size). The next-to-last line of
 standard output is the kernels' JSON record, the last
@@ -134,6 +156,7 @@ from kube_batch_tpu_torch.api import (
 from kube_batch_tpu_torch.framework import close_session, open_session
 from kube_batch_tpu_torch.native import greedy as NATIVE
 from kube_batch_tpu_torch.obs import RECORDER
+from kube_batch_tpu_torch.obs.quality import replay_view
 from kube_batch_tpu_torch.scheduler import Scheduler
 from kube_batch_tpu_torch.solver import _build
 from kube_batch_tpu_torch.solver import bid_kernels as BK
@@ -146,6 +169,9 @@ from kube_batch_tpu_torch.solver import topk as TK
 from kube_batch_tpu_torch.solver.masks import CombinedMask
 from kube_batch_tpu_torch.solver.snapshot import pack_inputs
 from kube_batch_tpu_torch.solver.topk import select_candidates, topk_config
+from kube_batch_tpu_torch.sim import SimConfig, TraceReader, WorkloadSpec
+from kube_batch_tpu_torch.sim.harness import ClusterSimulator
+from kube_batch_tpu_torch.sim.trace import canon
 from kube_batch_tpu_torch.solver.validate import validate_placements
 from kube_batch_tpu_torch.utils.test_utils import (
     DEFAULT_TIERS_ARGS,
@@ -1890,7 +1916,323 @@ def run_phase10(dev):
     return out
 
 
-def main() -> int:
+# -- phase 11: the simulator on the card -------------------------------------
+
+# The reference's smoke seeds (tests/sim/test_sim_smoke.py).
+SIM_SMOKE = dict(cycles=60, seed=5, faults="bind:0.05,node-flap:0.02",
+                 workload=WorkloadSpec(nodes=10, arrival_rate=1.2),
+                 backend="dense")
+# The Makefile's chaos-smoke and diverge-smoke mixes at 120 cycles, and
+# its failover-smoke drill on the dense backend with hangs added, so a
+# successor's abandoned solve shows whether it drops its device cache.
+SIM_CHAOS = (
+    ("chaos", dict(cycles=120, seed=11, backend="dense",
+                   faults="solver-exc:0.08,solver-hang:0.02,bind:0.05")),
+    ("diverge", dict(
+        cycles=120, seed=15, backend="dense", antientropy_every=1,
+        faults="event-drop:0.06,event-dup:0.06,event-reorder:0.05,"
+               "event-stale:0.05,relist-fail:0.25,solver-corrupt:0.04,"
+               "bind:0.03",
+        workload=WorkloadSpec(node_add_rate=0.02, node_drain_rate=0.02))),
+    ("drill", dict(
+        cycles=70, seed=13, backend="dense",
+        faults="bind:0.03,solver-hang:0.03",
+        workload=WorkloadSpec(arrival_rate=3.0),
+        kill_plan={8: "pre-solve", 20: "post-solve-pre-drain",
+                   32: "mid-bind-drain", 44: "mid-close"})),
+)
+# The fault kinds each of those runs must have injected.
+SIM_CHAOS_KINDS = {
+    "chaos": ("solver-exc", "solver-hang", "bind"),
+    "diverge": ("event-drop", "event-dup", "event-reorder", "event-stale",
+                "relist-fail", "solver-corrupt", "bind"),
+    "drill": ("leader-kill", "solver-hang", "bind"),
+}
+# A real-size cluster: bench.py::build_cluster's nodes, ~1,000 pod
+# arrivals a cycle under the default gang mix, up to 4,000 jobs resident
+# (reached by cycle 10). Cut from 24 cycles for the script's time.
+SIM_LARGE = dict(
+    cycles=16, seed=0, faults="bind:0.03", backend="auto",
+    workload=WorkloadSpec(nodes=5000, node_cpu_m=32000,
+                          node_mem_mi=131072, arrival_rate=400,
+                          arrival_profile="sustained",
+                          max_jobs_in_flight=4000))
+# Process state a run sets and must give back.
+SIM_ENV = ("KBT_SOLVER", "KBT_SOLVER_TOPK", "KBT_ANTIENTROPY_EVERY")
+
+
+def sim_records(records):
+    """Trace records after the header as canonical JSON, each quality
+    card through ``replay_view`` (the path-dependent solver deltas
+    dropped) and without the integrity block, which the harness's own
+    replay verifier leaves out too: which cycle an ingest anomaly lands
+    on follows the bind workers' timing (two CPU runs of phase 11.3's
+    cluster place the same three reorders in different cycles)."""
+    out = []
+    for rec in records[1:]:
+        rec = dict(rec)
+        rec.pop("integrity", None)
+        if "quality" in rec:
+            rec["quality"] = replay_view(rec["quality"])
+        out.append(canon(rec))
+    return out
+
+
+def sim_run(dev, what, **cfg):
+    """One ``ClusterSimulator`` run on ``dev``. The launch counters are
+    zeroed after construction (the harness's warm-up solves) and read
+    after the run; every periodic ``run_once`` is timed and its leader,
+    device, backend, ladder and launches kept, and every drop of
+    resident buffers is logged with its cache's leader. The run must
+    give back the environment it set."""
+    env = {k: os.environ.get(k) for k in SIM_ENV}
+    cycles, drops = [], []
+    guarded, drop = Scheduler.run_once_guarded, ATPU.drop_resident
+
+    def timed(sched):
+        before = (BK.bid_dense.launches, BK.bid_sparse.launches)
+        t0 = time.perf_counter()
+        ok = guarded(sched)
+        _sync(dev)
+        st = ATPU.last_stats
+        cycles.append({
+            "ms": (time.perf_counter() - t0) * 1e3, "ok": ok,
+            "leader": sched.cache.leader_identity,
+            "device": sched.device.type, "backend": st.get("backend"),
+            "ladder": [(e["rung"], e["outcome"])
+                       for e in st.get("solve_ladder") or ()],
+            "solve_ms": st.get("solve_ms"),
+            "select_path": st.get("select_path"),
+            "launches": {"bid_dense": BK.bid_dense.launches - before[0],
+                         "bid_sparse": BK.bid_sparse.launches - before[1]},
+        })
+        return ok
+
+    def dropped(cache, reason):
+        drops.append((cache.leader_identity, reason))
+        return drop(cache, reason)
+
+    Scheduler.run_once_guarded = timed
+    ATPU.drop_resident = dropped
+    try:
+        sim = ClusterSimulator(SimConfig(device=dev.type, **cfg))
+        BK.bid_dense.launches = 0
+        BK.bid_sparse.launches = 0
+        selections = metrics.solver_selection_device.total()
+        t0 = time.perf_counter()
+        report = sim.run()
+        seconds = time.perf_counter() - t0
+    finally:
+        Scheduler.run_once_guarded = guarded
+        ATPU.drop_resident = drop
+    check({k: os.environ.get(k) for k in SIM_ENV} == env,
+          f"{what}: the run left the environment changed")
+    return {
+        "report": report.to_dict(), "trace": sim.writer.records,
+        "records": sim_records(sim.writer.records),
+        "placements": [r["placements"] for r in sim.writer.records[1:]],
+        "seconds": seconds, "cycles": cycles, "drops": drops,
+        "launches": {"bid_dense": BK.bid_dense.launches,
+                     "bid_sparse": BK.bid_sparse.launches},
+        "device_selections": int(
+            metrics.solver_selection_device.total() - selections),
+    }
+
+
+def sim_clean(run, what):
+    rep = run["report"]
+    check(rep["violations"] == [],
+          f"{what}: {len(rep['violations'])} invariant violations, first "
+          f"{rep['violations'][:1]}")
+    check(rep["cycle_errors"] == 0,
+          f"{what}: {rep['cycle_errors']} cycle errors")
+
+
+def sim_on(run, what, dev):
+    """Every scheduler of the run, successors included, was built on
+    ``dev``, and its device cycles solved there."""
+    backends = {c["backend"] for c in run["cycles"] if c["backend"]}
+    check(f"torch-{dev.type}" in backends
+          and backends <= {f"torch-{dev.type}", "native"},
+          f"{what}: solved on {sorted(backends)}")
+    check({c["device"] for c in run["cycles"]} == {dev.type},
+          f"{what}: a scheduler was built off {dev.type}")
+
+
+def sim_first_diff(a, b):
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            x, y = json.loads(x), json.loads(y)
+            keys = sorted(k for k in set(x) | set(y) if x.get(k) != y.get(k))
+            return f"cycle {i}: {keys}"
+    return f"lengths {len(a)} and {len(b)}"
+
+
+def sim_summary(run):
+    rep = run["report"]
+    out = {k: rep.get(k) for k in (
+        "cycles", "placements", "fault_counts", "bind_failures",
+        "cycle_errors", "jobs_created", "jobs_completed", "leader_kills",
+        "recovery_failures", "breaker", "integrity")}
+    out.update(seconds=run["seconds"], launches=run["launches"],
+               device_selections=run["device_selections"],
+               violations=len(rep["violations"]), drops=run["drops"])
+    return out
+
+
+def sim_card_and_cpu(dev, what, **cfg):
+    card = sim_run(dev, f"{what} card", **cfg)
+    host = sim_run(torch.device("cpu"), f"{what} cpu", **cfg)
+    for run, where in ((card, "card"), (host, "cpu")):
+        sim_clean(run, f"{what} {where}")
+    sim_on(card, f"{what} card", dev)
+    return card, host
+
+
+def run_phase11(dev):
+    """Phase 11: the simulator on the card, each run once on ``dev`` and
+    once on the CPU in this process. A failed check is kept and the
+    phase goes on; it fails at its end with every message."""
+    out, failures = {}, []
+
+    def part(name, fn):
+        try:
+            fn()
+        except SmokeFailure as exc:
+            failures.append(f"phase {name}: {exc}")
+            log(f"phase {name}: FAILED: {exc}")
+
+    def smoke():
+        what = "11.1 smoke"
+        card, host = sim_card_and_cpu(dev, what, **SIM_SMOKE)
+        out["smoke"] = {"card": sim_summary(card), "cpu": sim_summary(host)}
+        check(card["records"] == host["records"],
+              f"{what}: card and CPU traces differ at "
+              f"{sim_first_diff(card['records'], host['records'])}")
+        check(card["report"]["placements"] > 100, f"{what}: few placements")
+        replay = sim_run(dev, f"{what} replay", backend="sparse", topk=16,
+                         replay=TraceReader(card["trace"]))
+        out["smoke"]["replay"] = sim_summary(replay)
+        sim_clean(replay, f"{what} replay")
+        check(replay["report"]["replay_mismatches"] == []
+              and not replay["report"].get("quality_mismatches"),
+              f"{what} replay: mismatches at "
+              f"{replay['report']['replay_mismatches'][:10]}, quality "
+              f"{replay['report'].get('quality_mismatches', [])[:10]}")
+        if dev.type == "cuda":
+            check(card["launches"]["bid_dense"] > 0,
+                  f"{what}: bid_dense not launched: {card['launches']}")
+            check(replay["launches"]["bid_sparse"] > 0,
+                  f"{what} replay: bid_sparse not launched: "
+                  f"{replay['launches']}")
+        log(f"phase {what}: {card['report']['placements']} placements in "
+            f"{card['report']['cycles']} cycles, card trace = CPU trace "
+            f"({card['seconds']:.1f} s on the card, {host['seconds']:.1f} s "
+            f"on the CPU), launches {card['launches']}; the replay under "
+            f"sparse K=16 matched every cycle, launches "
+            f"{replay['launches']}")
+
+    def chaos(name, cfg):
+        what = f"11.2 {name}"
+        card, host = sim_card_and_cpu(dev, what, **cfg)
+        out[name] = {"card": sim_summary(card), "cpu": sim_summary(host)}
+        rep = card["report"]
+        for kind in SIM_CHAOS_KINDS[name]:
+            check(rep["fault_counts"].get(kind, 0) > 0,
+                  f"{what}: no {kind} fault injected: {rep['fault_counts']}")
+        check(rep["fault_counts"] == host["report"]["fault_counts"],
+              f"{what}: fault counts {rep['fault_counts']} on the card, "
+              f"{host['report']['fault_counts']} on the CPU")
+        check(rep["breaker"]["state"] == "closed",
+              f"{what}: the breaker ended {rep['breaker']['state']}")
+        if "solver-hang" in SIM_CHAOS_KINDS[name]:
+            check(rep["breaker"]["trips"] >= 1
+                  and rep["breaker"]["reclosures"] >= 1,
+                  f"{what}: breaker {rep['breaker']}")
+        if name == "diverge":
+            check(rep["integrity"]["unrepaired_end"] == 0,
+                  f"{what}: unrepaired at the end: {rep['integrity']}")
+        check(card["placements"] == host["placements"],
+              f"{what}: card and CPU placements differ at "
+              f"{sim_first_diff(card['records'], host['records'])}")
+        timeouts = [c for c in card["cycles"]
+                    if (("dense", "timeout") in c["ladder"])]
+        for c in timeouts:
+            check((c["leader"], "solve-abandoned") in card["drops"],
+                  f"{what}: {c['leader']} timed out and kept its resident "
+                  f"buffers: drops {card['drops']}")
+        if name == "drill":
+            check(rep["leader_kills"] == 4 and rep["recovery_failures"] == 0,
+                  f"{what}: {rep['leader_kills']} kills, "
+                  f"{rep['recovery_failures']} recovery failures")
+            succ = [c for c in card["cycles"]
+                    if c["leader"] != "sim-leader-0"]
+            check(any(c["backend"] == f"torch-{dev.type}" for c in succ),
+                  f"{what}: no successor solved on {dev.type}")
+            check(any(c["leader"] != "sim-leader-0" for c in timeouts),
+                  f"{what}: no successor's solve timed out: "
+                  f"{[(c['leader'], c['ladder']) for c in timeouts]}")
+            if dev.type == "cuda":
+                check(sum(c["launches"]["bid_dense"] for c in succ) > 0,
+                      f"{what}: successors launched no bid_dense")
+        if dev.type == "cuda":
+            check(card["launches"]["bid_dense"] > 0,
+                  f"{what}: bid_dense not launched")
+        log(f"phase {what}: faults {rep['fault_counts']}, breaker trips "
+            f"{rep['breaker']['trips']} / reclosures "
+            f"{rep['breaker']['reclosures']} ({rep['breaker']['state']}), "
+            f"{len(timeouts)} timed-out solves each dropping its leader's "
+            f"resident buffers, {rep['placements']} placements = the CPU's, "
+            f"{card['seconds']:.1f} s on the card / {host['seconds']:.1f} s "
+            f"on the CPU, launches {card['launches']}"
+            + (f", {rep['leader_kills']} leader kills, failovers "
+               f"{[f['cut'] for f in rep['failovers']]}"
+               if name == "drill" else ""))
+
+    def large():
+        what = "11.3 5,000 nodes"
+        card, host = sim_card_and_cpu(dev, what, **SIM_LARGE)
+        rows = [{"ms": round(c["ms"], 1),
+                 "solve_ms": (round(c["solve_ms"], 1)
+                              if c["solve_ms"] is not None else None),
+                 "placed": len(p), "select_path": c["select_path"],
+                 "launches": c["launches"]}
+                for c, p in zip(card["cycles"], card["placements"])]
+        out["large"] = {"card": sim_summary(card), "cpu": sim_summary(host),
+                        "card_cycles": rows,
+                        "cpu_cycle_ms": [round(c["ms"], 1)
+                                         for c in host["cycles"]]}
+        for i, row in enumerate(rows):
+            log(f"phase {what} cycle {i}: run_once {row['ms']} ms, solve "
+                f"{row['solve_ms']} ms, {row['placed']} placed, selection "
+                f"{row['select_path']}, launches {row['launches']}")
+        check(card["records"] == host["records"],
+              f"{what}: card and CPU traces differ at "
+              f"{sim_first_diff(card['records'], host['records'])}")
+        check(card["device_selections"] > 0,
+              f"{what}: no selection ran on the device")
+        if dev.type == "cuda":
+            check(card["launches"]["bid_sparse"] > 0,
+                  f"{what}: bid_sparse not launched: {card['launches']}")
+        log(f"phase {what}: {card['report']['placements']} placements in "
+            f"{card['report']['cycles']} cycles ({card['seconds']:.1f} s on "
+            f"the card, {host['seconds']:.1f} s on the CPU), card trace = "
+            f"CPU trace, {card['device_selections']} device selections, "
+            f"launches {card['launches']}")
+
+    part("11.1", smoke)
+    for name, cfg in SIM_CHAOS:
+        part(f"11.2 {name}", lambda name=name, cfg=cfg: chaos(name, cfg))
+    part("11.3", large)
+    out["failures"] = failures
+    return out
+
+
+def main(argv=None) -> int:
+    args = sys.argv[1:] if argv is None else argv
+    only_sim = args == ["--phase", "11"]
+    check(not args or only_sim,
+          f"usage: chip_smoke.py [--phase 11], not {args}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -1933,6 +2275,18 @@ def main() -> int:
     log(f"phase 1: dense group loop (SASS): {report['sass']}")
     native.join()
     check(NATIVE.native_available(), "the native floor did not build")
+    if only_sim:
+        # Phase 1, then phase 11 alone (a shorter call while phase 11
+        # is worked on); prints no result line.
+        report["sim"] = run_phase11(dev)
+        report["seconds"] = time.perf_counter() - t0
+        (OUT_DIR / "chip_smoke.json").write_text(
+            json.dumps(report, indent=1))
+        log(smi)
+        check(not report["sim"]["failures"],
+              "; ".join(report["sim"]["failures"]))
+        log(f"phases 1 and 11 passed in {report['seconds']:.1f} s")
+        return 0
 
     # -- snapshots -----------------------------------------------------------
     check(topk_config(50_000, 5_000).enabled, "topk policy off at 50k x 5k")
@@ -2077,7 +2431,12 @@ def main() -> int:
 
     # -- phase 10: the process on the card ----------------------------------
     report["process"] = run_phase10(dev)
+
+    # -- phase 11: the simulator on the card ---------------------------------
+    report["sim"] = run_phase11(dev)
     report["seconds"] = time.perf_counter() - t0
+    (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+    check(not report["sim"]["failures"], "; ".join(report["sim"]["failures"]))
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     log(f"all phases passed in {report['seconds']:.1f} s")
     log(smi)

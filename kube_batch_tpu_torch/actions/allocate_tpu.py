@@ -10,9 +10,13 @@ greedy path (framework/session.go:237-289).
 
 What differs from the reference:
 
-- **The device belongs to the action** (``AllocateTpuAction(device=)``,
-  resolved by ``device.resolve_device``: ``cuda`` unless ``"cpu"`` is
-  asked for, a raise when there is no CUDA). The scheduler cache's device
+- **The device belongs to the cycle**: the session's, which a
+  ``Scheduler`` opens with its own device, else the action's
+  (``AllocateTpuAction(device=)``). The registry shares one action
+  instance across schedulers, so a scheduler never writes its device
+  into it. Either is resolved by ``device.resolve_device``: ``cuda``
+  unless ``"cpu"`` is asked for, a raise when there is no CUDA. The
+  scheduler cache's device
   snapshot cache is created on it, and the bid library is built the
   first time the action meets a CUDA device, outside any solve budget.
 - **Native routing.** The reference routes to the native floor whenever
@@ -354,6 +358,13 @@ def _restamp_deferred(ssn, outcome: str) -> None:
         logger.exception("micro-defer requeue restamp failed")
 
 
+def _bundle_device(inputs) -> torch.device:
+    """Where a bundle lives: a ``PackedInputs``' stacks or a
+    ``SolverInputs``' tensors."""
+    task = getattr(inputs, "task_f32", None)
+    return (inputs.task_req if task is None else task).device
+
+
 class AllocateTpuAction(Action):
     # Eligible for the scheduler's event-driven micro cycles
     # (Scheduler.run_micro): in micro mode the action places only
@@ -364,20 +375,28 @@ class AllocateTpuAction(Action):
                  use_kernel: bool = True):
         self.max_rounds = max_rounds
         # None: ``cuda`` (resolved at each device cycle, so importing
-        # the action on a machine without CUDA never raises).
+        # the action on a machine without CUDA never raises). A session
+        # opened by a Scheduler carries that scheduler's device, which
+        # wins: the registry shares this instance across schedulers.
         self.device = device
         self.use_kernel = use_kernel
 
     def name(self) -> str:
         return "allocate_tpu"
 
-    def _resolve_device(self) -> torch.device:
-        """The action's device (raises without CUDA unless ``"cpu"`` was
+    def _cycle_device(self, ssn):
+        """The device this cycle solves on: the session's (its
+        scheduler's), else the action's own."""
+        device = getattr(ssn, "device", None)
+        return self.device if device is None else device
+
+    def _resolve_device(self, device) -> torch.device:
+        """The cycle's device (raises without CUDA unless ``"cpu"`` was
         asked for). The first time it is a CUDA device and the kernels
         are on, the bid library is built here, outside any solve budget:
         a cold ``nvcc`` inside the first fetch would blow the deadline
         and open the breaker."""
-        dev = resolve_device(self.device)
+        dev = resolve_device(device)
         if dev.type == "cuda" and self.use_kernel:
             from ..solver._build import load_library
 
@@ -391,8 +410,9 @@ class AllocateTpuAction(Action):
         :class:`SolverInputs` that every tensorize (device or not)
         leaves on the context — the floor must never touch a device
         that just failed, not even to read the fallback bundle. Device
-        rungs run the kernels on subset bundles too: they hash the
-        global rank (``task_ids``), not the row position."""
+        rungs solve where ``tensorize`` packed the bundle (the cycle's
+        device), and run the kernels on subset bundles too: they hash
+        the global rank (``task_ids``), not the row position."""
         from ..solver import containment
 
         if rung == "native":
@@ -403,7 +423,7 @@ class AllocateTpuAction(Action):
             inputs, False, self.max_rounds,
             fault_hook=containment.device_fault_hook(),
             use_kernel=self.use_kernel,
-            device=self.device,
+            device=_bundle_device(inputs),
         )
 
     def _solve_ladder(self, ssn, rungs, inputs, ctx, handle, budget,
@@ -586,7 +606,7 @@ class AllocateTpuAction(Action):
         use_native = _use_native_solver()
         dev = None
         if not use_native:
-            dev = self._resolve_device()
+            dev = self._resolve_device(self._cycle_device(ssn))
         # Circuit-breaker gate (solver/containment.py), also before
         # tensorize: an OPEN breaker pins the cycle to the native floor
         # without touching the quarantined device at all — no device

@@ -4,8 +4,7 @@ Mirrors reference cmd/kube-batch/ (main.go, app/server.go, app/options).
 
 A copy of the JAX package's ``cli``: ``python -m kube_batch_tpu_torch``
 runs the same process on the port (``--device`` picks ``cuda`` or
-``cpu``). The ``sim`` and ``sim-study`` subcommands need the simulator,
-which is not ported: they exit non-zero with a message.
+``cpu``), and ``sim`` and ``sim-study`` run the port's simulator.
 """
 
 from .options import (
@@ -58,16 +57,19 @@ def main(argv=None) -> None:
     from .. import plugins as _plugins  # noqa: F401
 
     args = sys.argv[1:] if argv is None else list(argv)
-    if args and args[0] in ("sim", "sim-study"):
-        # The deterministic cluster simulator and its paired A/B study
-        # are not ported yet.
-        print(
-            f"tpu-batch: the {args[0]!r} subcommand needs the cluster "
-            f"simulator (sim/), which kube_batch_tpu_torch does not have "
-            f"yet",
-            file=sys.stderr,
-        )
-        sys.exit(2)
+    if args and args[0] == "sim":
+        # Subcommand: the deterministic cluster simulator
+        # (kube_batch_tpu_torch/sim). `python -m kube_batch_tpu_torch sim
+        # --help`.
+        from ..sim.cli import main as sim_main
+
+        sys.exit(sim_main(args[1:]))
+    if args and args[0] == "sim-study":
+        # Subcommand: multi-seed paired A/B placement-quality study
+        # (kube_batch_tpu_torch/sim/study.py). `sim-study --help`.
+        from ..sim.study import main as study_main
+
+        sys.exit(study_main(args[1:]))
     if args and args[0] == "explain":
         # Subcommand: pending-gang explainability
         # (`python -m kube_batch_tpu_torch explain <ns>/<job>`).

@@ -26,8 +26,9 @@ from .session import Session
 logger = logging.getLogger(__name__)
 
 
-def open_session(cache, tiers: List[Tier], micro: bool = False) -> Session:
-    ssn = Session(cache, tiers, micro=micro)
+def open_session(cache, tiers: List[Tier], micro: bool = False,
+                 device=None) -> Session:
+    ssn = Session(cache, tiers, micro=micro, device=device)
     ssn._open()
 
     for tier in tiers:

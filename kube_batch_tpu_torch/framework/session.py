@@ -86,10 +86,13 @@ def _fold_job_batches(jobs_map, tasks):
 class Session:
     def __init__(
         self, cache, tiers: Optional[List[Tier]] = None,
-        micro: bool = False,
+        micro: bool = False, device=None,
     ):
         self.uid = str(_uuid.uuid4())
         self.cache = cache
+        # The opening scheduler's device: allocate_tpu solves on it
+        # (None: the action's own).
+        self.device = device
         # Micro sessions tell the cache snapshot up front (the
         # ledger-verified fast path runs inside _open's snapshot call,
         # before run_micro could set the legacy micro_cycle attribute).

@@ -8,8 +8,9 @@ and pkg/scheduler/util.go (:44 loadSchedulerConf, :32 defaultSchedulerConf).
 A copy of the reference's ``scheduler.py``. The one addition is the
 device: ``Scheduler(..., device=None)`` resolves it like every entry
 point of the port (``cuda`` unless ``"cpu"`` is asked for; a raise when
-there is no CUDA) and sets it on the ``allocate_tpu`` action its policy
-names.
+there is no CUDA) and opens every session with it (``ssn.device``), where
+the ``allocate_tpu`` action, one instance shared by every scheduler of
+the process, reads it.
 """
 
 from __future__ import annotations
@@ -361,11 +362,6 @@ class Scheduler:
             with open(confstr) as f:
                 confstr = f.read()
         self.actions, self.tiers = load_scheduler_conf(confstr)
-        # The registry holds one instance per action: the policy's
-        # allocate_tpu solves on this scheduler's device.
-        for action in self.actions:
-            if action.name() == "allocate_tpu":
-                action.device = self.device
         # Successor-recovery note for the first post-recovery cycle's
         # flight record (recover_from_journal sets it; run_once drains
         # it into RECORDER.annotate("recovery", ...)).
@@ -697,7 +693,8 @@ class Scheduler:
                     t0 = time.perf_counter()
                     with span("open_session"):
                         ssn = open_session(
-                            self.cache, self.tiers, micro=True
+                            self.cache, self.tiers, micro=True,
+                            device=self.device,
                         )
                     RECORDER.phase_done(
                         "open_session", (time.perf_counter() - t0) * 1e3
@@ -836,7 +833,9 @@ class Scheduler:
                 RECORDER.phase("open_session")
                 t0 = time.perf_counter()
                 with span("open_session"):
-                    ssn = open_session(self.cache, self.tiers)
+                    ssn = open_session(
+                        self.cache, self.tiers, device=self.device
+                    )
                 RECORDER.phase_done(
                     "open_session", (time.perf_counter() - t0) * 1e3
                 )

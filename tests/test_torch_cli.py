@@ -7,7 +7,8 @@ the metrics endpoint, the file-lease elector and ``cli.run`` in
 node) set). The port's own cases follow: ``--device`` in place of the
 backend probe (``cuda`` raises without CUDA, the process exits non-zero
 with a message), the unported modes (``--master``, ``--kubeconfig``,
-``sim``, ``sim-study``, the Lease elector) refuse with a message, the
+the Lease elector) refuse with a message, as ``sim`` and ``sim-study``
+do without CUDA unless ``--device cpu`` is given, the
 ``explain`` subcommand equals the reference's, and one cluster-state file
 goes through ``python -m`` of each package, one subprocess each, with
 equal bound sets.

@@ -22,8 +22,9 @@ from tests.test_torch_solver import snapshot_mixed
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PKG = pathlib.Path(kube_batch_tpu_torch.__file__).parent
 
-# Modules of the process layer and of cluster truth and device-resident
-# selection, named so a walk that skipped them would fail.
+# Modules of the process layer, of cluster truth and device-resident
+# selection, and of the simulator, named so a walk that skipped them
+# would fail.
 SLICE_MODULES = (
     "kube_batch_tpu_torch.__main__",
     "kube_batch_tpu_torch.version",
@@ -35,6 +36,17 @@ SLICE_MODULES = (
     "kube_batch_tpu_torch.cache.antientropy",
     "kube_batch_tpu_torch.cache.recovery",
     "kube_batch_tpu_torch.solver.select_device",
+    "kube_batch_tpu_torch.sim",
+    "kube_batch_tpu_torch.sim.clock",
+    "kube_batch_tpu_torch.sim.trace",
+    "kube_batch_tpu_torch.sim.workload",
+    "kube_batch_tpu_torch.sim.invariants",
+    "kube_batch_tpu_torch.sim.faults",
+    "kube_batch_tpu_torch.sim.failover",
+    "kube_batch_tpu_torch.sim.soak",
+    "kube_batch_tpu_torch.sim.harness",
+    "kube_batch_tpu_torch.sim.cli",
+    "kube_batch_tpu_torch.sim.study",
 )
 
 _BAD = """

@@ -72,7 +72,7 @@ def run_scheduler(side, conf, port):
         for action in sched.actions:
             if action.name() == "allocate_tpu":
                 action.use_kernel = False
-                assert action.device == torch.device("cpu")
+        assert sched.device == torch.device("cpu")
     else:
         sched = Scheduler(cache, conf)
     rng = np.random.RandomState(1)
@@ -173,7 +173,7 @@ def test_census_stays_flat_across_cycles_on_the_card():
     cache = PORT.build_cluster(*SHAPE, seed=0)
     try:
         sched = PScheduler(cache, TPU_CONF)
-        assert action.device == torch.device("cuda") and action.use_kernel
+        assert sched.device == torch.device("cuda") and action.use_kernel
         rng = np.random.RandomState(1)
         counts, backends = [], []
         for cycle in range(4):
