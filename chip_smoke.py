@@ -105,19 +105,48 @@ phase fails. Phases:
    placements, every timed-out solve drops its leader's resident
    buffers, the successors solve on the card; (3) 5,000 nodes of
    ``bench.py::build_cluster``'s shape, 400 gang arrivals a cycle, up to
-   4,000 jobs, bind faults, ``auto``, 16 cycles (24 cost 142 s a
-   device, most of it the harness's host work): card trace = CPU trace,
+   4,000 jobs, bind faults, ``auto``, 8 cycles (16 cost 33-82 s a
+   device, most of it the harness's host work; cut for phase 12's
+   time): card trace = CPU trace,
    ``bid_sparse`` launched, selection on the device; per cycle the
    ``run_once`` time, the solve time and the placements. A failed check
    of phase 11 is kept and the phase goes on; it fails at its end.
    ``python3 chip_smoke.py --phase 11`` runs phases 1 and 11 alone and
-   prints no result line.
+   prints no result line;
+12. the real-cluster process and the perf harness on the card: (1)
+   ``perf.run_density`` with the TPU policy at the reference's kubemark
+   scale (3,000 pods on 100 hollow nodes, gangs of 10) and at 50,000 x
+   5,000: every pod Running, every gang whole, every solving cycle
+   (periodic or micro) on ``torch-cuda`` on one ``ok`` rung, a bid
+   kernel launched; the four latency distributions and pods per second
+   are recorded; (2) ``perf.run_multitenant_compare`` on 100 nodes:
+   both loops backfill the best-effort pods and evict from tenant A
+   with every gang whole and no node over capacity, the greedy loop
+   admits all of tenant B and launches no kernel, the ``allocate_tpu``
+   loop launches a bid kernel on healthy cycles (how much of B it
+   admits depends on timing at this size, in the reference too, and is
+   recorded); (3) bench.py ``medium`` (10,000 x
+   1,000) as API documents in a ``FakeKube`` in this process, and
+   ``python -m kube_batch_tpu_torch --master URL --once`` in a
+   subprocess on the card, then with ``--device cpu`` against a fresh
+   FakeKube: ``bid_dense`` launched, gangs whole, no node over
+   capacity, the bindings equal; (4) the Lease failover: leader A
+   (``--leader-elect``, loop mode) over the same cluster with its last
+   10 gangs pending and each bind POST held 5 ms, killed with SIGKILL
+   once the Lease annotation journals its bind intent and a third of
+   that intent's pods are bound; B (``--once``), started once A leads,
+   takes the Lease after it expires, reconciles A's journal, binds the
+   rest on the card and leaves the journal empty and the Lease free; no
+   pod bound twice, no node over capacity, every gang whole, every pod
+   bound. ``python3 chip_smoke.py --phase 12`` runs phases 1 and 12
+   alone and prints no result line.
 
 Each phase sets the kernels' launch counters to 0 just before it drives
 the path and reads them just after (phase 7: around each cycle, from
 ``open_session`` to the solve; phases 8 and 10: around each
-``run_once``; 10.1: the subprocess starts from 0; phase 11: after
-each simulator's construction, whose warm-up solves launch both). The
+``run_once``; 10.1, 12.3 and 12.4: each subprocess starts from 0;
+phase 11: after each simulator's construction, whose warm-up solves
+launch both; 12.1 and 12.2: around each periodic and micro cycle). The
 kernels' ``launches`` in the JSON record are phase 8's first card run
 (the four cycles at the kernel's size). The next-to-last line of
 standard output is the kernels' JSON record, the last
@@ -153,6 +182,7 @@ from kube_batch_tpu_torch.api import (
     PodPhase,
     build_resource_list,
 )
+from kube_batch_tpu_torch.cluster.kube import KubeCluster, KubeConfig
 from kube_batch_tpu_torch.framework import close_session, open_session
 from kube_batch_tpu_torch.native import greedy as NATIVE
 from kube_batch_tpu_torch.obs import RECORDER
@@ -173,9 +203,11 @@ from kube_batch_tpu_torch.sim import SimConfig, TraceReader, WorkloadSpec
 from kube_batch_tpu_torch.sim.harness import ClusterSimulator
 from kube_batch_tpu_torch.sim.trace import canon
 from kube_batch_tpu_torch.solver.validate import validate_placements
+from kube_batch_tpu_torch.utils.fake_kube import FakeKube
 from kube_batch_tpu_torch.utils.test_utils import (
     DEFAULT_TIERS_ARGS,
     add_gang_burst,
+    bench_objects,
     build_cluster,
     build_in_process_cluster,
     build_node,
@@ -1952,7 +1984,7 @@ SIM_CHAOS_KINDS = {
 # arrivals a cycle under the default gang mix, up to 4,000 jobs resident
 # (reached by cycle 10). Cut from 24 cycles for the script's time.
 SIM_LARGE = dict(
-    cycles=16, seed=0, faults="bind:0.03", backend="auto",
+    cycles=8, seed=0, faults="bind:0.03", backend="auto",
     workload=WorkloadSpec(nodes=5000, node_cpu_m=32000,
                           node_mem_mi=131072, arrival_rate=400,
                           arrival_profile="sustained",
@@ -2228,11 +2260,590 @@ def run_phase11(dev):
     return out
 
 
+# -- phase 12: the real-cluster process and the perf harness on the card ----
+
+# perf.run_density at the reference's kubemark design scale (3,000 pods on
+# 100 hollow nodes, gangs of 10: perf.py's docstring) and at the north
+# star's cluster size (bench.py ``large``: 50,000 pods x 5,000 nodes) with
+# density's own pod shape; perf.run_multitenant_compare at the
+# reference's 100 nodes; bench.py ``medium`` (10,000 x 1,000, 4 queues,
+# 100 gangs) as API documents behind the FakeKube for 12.3 and 12.4.
+PHASE12 = {
+    "density": (("kubemark_3k_100", dict(total_pods=3_000, nodes=100,
+                                         pods_per_group=10, timeout=120.0)),
+                ("north_star_50k_5k", dict(total_pods=50_000, nodes=5_000,
+                                           pods_per_group=10,
+                                           timeout=180.0))),
+    # 60 s a run, half of it for tenant B's admission (perf.py splits it).
+    "multitenant": dict(nodes=100, timeout=60.0),
+    "http": (10_000, 1_000, 4, 100),
+    # 12.4: the last gangs are still pending when leader A starts (the
+    # others run where 12.3's card run bound them), so A's first cycle
+    # journals one bind intent under the Lease annotation's byte budget
+    # (a 10,000-task record is over it and binds unjournaled, as in the
+    # reference); each bind POST is held this long until A is killed.
+    "failover_pending_gangs": 10,
+    "failover_bind_delay_s": 0.005,
+}
+API_GROUP = "scheduling.incubator.k8s.io"
+LEASE_NS = "kube-system"
+LEASES = f"/apis/coordination.k8s.io/v1/namespaces/{LEASE_NS}/leases"
+
+
+@contextlib.contextmanager
+def patched(obj, name, value):
+    saved = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, saved)
+
+
+@contextlib.contextmanager
+def traced_cycles(dev):
+    """Every periodic and micro cycle of the schedulers the block builds:
+    the launch counters and the action's stats are cleared just before
+    it and read just after, with its time."""
+    cycles = []
+    saved = {name: getattr(Scheduler, name)
+             for name in ("run_once", "run_micro")}
+
+    def wrap(kind, fn):
+        def traced(sched):
+            BK.bid_dense.launches = 0
+            BK.bid_sparse.launches = 0
+            ATPU.last_stats.clear()
+            t0 = time.perf_counter()
+            try:
+                return fn(sched)
+            finally:
+                _sync(dev)
+                cycles.append({
+                    "kind": kind, "ms": (time.perf_counter() - t0) * 1e3,
+                    "launches": {"bid_dense": BK.bid_dense.launches,
+                                 "bid_sparse": BK.bid_sparse.launches},
+                    "stats": dict(ATPU.last_stats)})
+        return traced
+
+    for name, fn in saved.items():
+        setattr(Scheduler, name, wrap(name, fn))
+    try:
+        yield cycles
+    finally:
+        for name, fn in saved.items():
+            setattr(Scheduler, name, fn)
+
+
+def solving_summary(cycles, dev, what, kernels=True):
+    """Every cycle that solved ran on ``dev`` on one ``ok`` rung with no
+    breaker pin or rejected placement; returns the counts, and with
+    ``kernels`` a bid kernel must have launched on the card."""
+    solving, rungs = 0, set()
+    for i, cyc in enumerate(cycles):
+        st = cyc["stats"]
+        check(not st.get("breaker_pinned"), f"{what} cycle {i}: pinned")
+        check("validation_rejected" not in st,
+              f"{what} cycle {i}: validation rejected placements")
+        if "backend" not in st:
+            continue
+        solving += 1
+        check(st["backend"] == f"torch-{dev.type}",
+              f"{what} cycle {i}: solved on {st['backend']}")
+        ladder = st.get("solve_ladder") or []
+        check(len(ladder) == 1 and ladder[0]["outcome"] == "ok",
+              f"{what} cycle {i}: ladder {ladder}")
+        rungs.add(ladder[0]["rung"])
+    launches = {k: sum(c["launches"][k] for c in cycles)
+                for k in ("bid_dense", "bid_sparse")}
+    if kernels:
+        check(solving > 0, f"{what}: no cycle solved")
+        check(dev.type != "cuda" or sum(launches.values()) > 0,
+              f"{what}: no bid kernel launched")
+    return {"cycles": len(cycles),
+            "micro": sum(c["kind"] == "run_micro" for c in cycles),
+            "solving": solving, "rungs": sorted(rungs),
+            "launches": launches,
+            "solve_ms_max": max((c["stats"].get("solve_block_ms", 0.0)
+                                 for c in cycles), default=0.0)}
+
+
+def latency_items(art):
+    return {d["label"]: {k: round(v, 3) for k, v in d.items()
+                         if k != "label"} for d in art["dataItems"]}
+
+
+def density_run(dev, what, kw):
+    """12.1: ``perf.run_density`` with the TPU policy on ``dev``."""
+    from kube_batch_tpu_torch import perf
+    from kube_batch_tpu_torch.cluster import InProcessCluster
+
+    made = []
+
+    def cluster_factory(**ckw):
+        made.append(InProcessCluster(**ckw))
+        return made[-1]
+
+    with patched(perf, "InProcessCluster", cluster_factory), \
+            traced_cycles(dev) as cycles:
+        art = perf.run_density(scheduler_conf=TPU_CONF, device=dev, **kw)
+    total = kw["total_pods"]
+    check(art["pods_running"] == total and art["pods_scheduled"] == total,
+          f"{what}: {art['pods_running']} of {total} pods running in "
+          f"{art['wall_seconds']} s")
+    broken = gangs_whole(made[0], namespace="perf")
+    check(not broken, f"{what}: gangs bound below minMember: {broken[:5]}")
+    out = {"wall_seconds": art["wall_seconds"],
+           "pods_per_second": art["pods_per_second"],
+           "latency_ms": latency_items(art),
+           **solving_summary(cycles, dev, what)}
+    del made[:]
+    gc.collect()
+    return out
+
+
+def nodes_over(alloc, placed):
+    """The nodes whose pods request more CPU, memory or pod slots than
+    the node has: ``alloc`` maps a node to its allocatable quantities,
+    ``placed`` holds a (node, requests) pair for each bound pod."""
+    from kube_batch_tpu_torch.api.resource_info import parse_quantity
+
+    used = {}
+    for node, req in placed:
+        row = used.setdefault(node, [0.0, 0.0, 0])
+        row[0] += parse_quantity(req.get("cpu", 0))
+        row[1] += parse_quantity(req.get("memory", 0))
+        row[2] += 1
+    return sorted(
+        n for n, (cpu, mem, count) in used.items()
+        if n not in alloc
+        or cpu > parse_quantity(alloc[n].get("cpu", 0)) + 1e-9
+        or mem > parse_quantity(alloc[n].get("memory", 0))
+        or count > int(alloc[n].get("pods", 0)))
+
+
+def over_capacity(cluster):
+    """:func:`nodes_over` of an in-process cluster (one container a
+    pod, as every pod the perf harness builds)."""
+    return nodes_over(
+        {n.name: n.status.allocatable for n in cluster.list_objects("Node")},
+        ((p.spec.node_name, p.spec.containers[0].requests)
+         for p in cluster.list_objects("Pod") if p.spec.node_name))
+
+
+def multitenant_run(dev, what, kw):
+    """12.2: ``perf.run_multitenant_compare``; each of its two runs is
+    traced on its own (the counters zeroed around each cycle) and its
+    cluster kept. Both loops backfill the best-effort pods and evict
+    from tenant A without taking a gang below minMember, no node is over
+    capacity, and the greedy loop admits all of tenant B. How much of B
+    the ``allocate_tpu`` loop admits depends on timing at this size in
+    the reference too (the tenants' reclaimable pods are exactly B's
+    demand: one gang of evictions B does not use leaves its last gangs
+    short), so it is recorded, not held to all."""
+    from kube_batch_tpu_torch import perf
+    from kube_batch_tpu_torch.cluster import InProcessCluster
+
+    runs, clusters = {}, []
+    inner = perf.run_multitenant
+
+    def traced_run(**rkw):
+        with traced_cycles(dev) as cycles:
+            art = inner(**rkw)
+        runs[rkw["allocate_action"]] = (cycles, clusters[-1])
+        return art
+
+    def cluster_factory(**ckw):
+        clusters.append(InProcessCluster(**ckw))
+        return clusters[-1]
+
+    with patched(perf, "run_multitenant", traced_run), \
+            patched(perf, "InProcessCluster", cluster_factory):
+        art = perf.run_multitenant_compare(device=dev, **kw)
+    out = {"comparison": art["comparison"]}
+    want_b = art["config"]["tenant_b_pods"]
+    for action, run in (("allocate_tpu", art),
+                        ("allocate", art["reference_loop"])):
+        cycles, cluster = runs[action]
+        check(run["besteffort_backfilled"]
+              == art["config"]["besteffort_pods"],
+              f"{what} {action}: {run['besteffort_backfilled']} best-effort "
+              f"pods backfilled")
+        check(run["tenant_a_evicted"] > 0 and run["tenant_b_running"] > 0,
+              f"{what} {action}: {run['tenant_a_evicted']} evicted, "
+              f"{run['tenant_b_running']} of tenant B admitted")
+        broken = gangs_whole(cluster, namespace="perf")
+        check(not broken, f"{what} {action}: gangs below minMember: "
+              f"{broken[:5]}")
+        over = over_capacity(cluster)
+        check(not over, f"{what} {action}: nodes over capacity {over[:5]}")
+        summary = solving_summary(cycles, dev, f"{what} {action}",
+                                  kernels=action == "allocate_tpu")
+        if action == "allocate":
+            check(run["tenant_b_running"] == want_b,
+                  f"{what} {action}: tenant B {run['tenant_b_running']} of "
+                  f"{want_b} admitted")
+            check(summary["solving"] == 0
+                  and sum(summary["launches"].values()) == 0,
+                  f"{what}: the greedy loop launched {summary['launches']}")
+        out[action] = {
+            "tenant_a_running_initial": run["tenant_a_running_initial"],
+            "besteffort_backfilled": run["besteffort_backfilled"],
+            "tenant_b_running": run["tenant_b_running"],
+            "tenant_a_evicted": run["tenant_a_evicted"],
+            "wall_seconds": run["wall_seconds"],
+            "admission_ms": latency_items(run)["tenant_b_admission_ms"],
+            **summary}
+    del clusters[:]
+    gc.collect()
+    return out
+
+
+def api_documents(n_tasks, n_nodes, n_queues, n_groups, seed=0):
+    """``build_cluster``'s seeded objects as Kubernetes API documents, in
+    creation order."""
+    docs = []
+    for kind, obj in bench_objects(n_tasks, n_nodes, n_queues, n_groups,
+                                   seed):
+        meta = {"name": obj.metadata.name}
+        if kind == "Queue":
+            docs.append((kind, {
+                "apiVersion": f"{API_GROUP}/v1alpha1", "kind": kind,
+                "metadata": meta, "spec": {"weight": obj.spec.weight}}))
+        elif kind == "Node":
+            alloc = {k: str(v) for k, v in obj.status.allocatable.items()}
+            docs.append((kind, {
+                "apiVersion": "v1", "kind": kind,
+                "metadata": dict(meta, uid=f"uid-{obj.metadata.name}"),
+                "status": {"allocatable": alloc, "capacity": dict(alloc)}}))
+        elif kind == "PodGroup":
+            docs.append((kind, {
+                "apiVersion": f"{API_GROUP}/v1alpha1", "kind": kind,
+                "metadata": dict(meta, namespace=obj.metadata.namespace),
+                "spec": {"minMember": obj.spec.min_member,
+                         "queue": obj.spec.queue}}))
+        else:
+            docs.append((kind, {
+                "apiVersion": "v1", "kind": kind,
+                "metadata": dict(
+                    meta, namespace=obj.metadata.namespace,
+                    uid=obj.metadata.uid,
+                    annotations=dict(obj.metadata.annotations)),
+                "spec": {"schedulerName": "tpu-batch", "containers": [{
+                    "name": "main", "resources": {"requests": {
+                        k: str(v) for k, v in
+                        obj.spec.containers[0].requests.items()}}}]},
+                "status": {"phase": "Pending"}}))
+    return docs
+
+
+def serve(docs, bound=None):
+    """A FakeKube holding ``docs`` (fresh copies); pods in ``bound``
+    (``ns/name`` -> node) are already bound and Running."""
+    fake = FakeKube()
+    for kind, doc in docs:
+        doc = json.loads(json.dumps(doc))
+        key = f"{doc['metadata'].get('namespace')}/{doc['metadata']['name']}"
+        if kind == "Pod" and bound and key in bound:
+            doc["spec"]["nodeName"] = bound[key]
+            doc["status"]["phase"] = "Running"
+        fake.create(kind, doc)
+    return fake
+
+
+def api_truth(fake):
+    """From the API server's objects: the bound pods (``ns/name`` ->
+    node), the gangs bound below minMember, and the nodes over capacity
+    (:func:`nodes_over`; one container a pod, as :func:`api_documents`
+    writes them)."""
+    with fake.lock:
+        pods = [json.loads(json.dumps(p))
+                for p in fake.objects["Pod"].values()]
+        groups = {k: g["spec"]["minMember"]
+                  for k, g in fake.objects["PodGroup"].items()}
+        nodes = {k: dict(n["status"]["allocatable"])
+                 for k, n in fake.objects["Node"].items()}
+    bound, per_group, placed = {}, {}, []
+    for p in pods:
+        node = p["spec"].get("nodeName")
+        if not node:
+            continue
+        md = p["metadata"]
+        bound[f"{md['namespace']}/{md['name']}"] = node
+        placed.append((node, p["spec"]["containers"][0]["resources"]
+                       ["requests"]))
+        group = (md.get("annotations") or {}).get(GROUP_NAME_ANNOTATION_KEY)
+        if group:
+            key = f"{md['namespace']}/{group}"
+            per_group[key] = per_group.get(key, 0) + 1
+    broken = sorted(g for g, minm in groups.items()
+                    if 0 < per_group.get(g, 0) < minm)
+    return {"bound": bound, "broken": broken,
+            "over": nodes_over(nodes, placed), "pods": len(pods)}
+
+
+# ``python -m kube_batch_tpu_torch <argv>`` over HTTP; after its
+# ``__main__`` returns, the action's backend, the kernels' launch counts
+# and the recovery report of the process.
+_HTTP_PROBE = """
+import json, runpy, sys
+from kube_batch_tpu_torch.actions import allocate_tpu as ATPU
+from kube_batch_tpu_torch.cache import recovery
+from kube_batch_tpu_torch.solver import bid_kernels as BK
+sys.argv = ["kube_batch_tpu_torch"] + %r
+runpy.run_module("kube_batch_tpu_torch", run_name="__main__")
+print("RESULT " + json.dumps({
+    "backend": ATPU.last_stats.get("backend"),
+    "solve_ladder": ATPU.last_stats.get("solve_ladder"),
+    "launches": {"bid_dense": BK.bid_dense.launches,
+                 "bid_sparse": BK.bid_sparse.launches},
+    "recovery": recovery.LAST_RECOVERY}), flush=True)
+"""
+
+
+def process_argv(fake, dev, *extra):
+    argv = ["--master", fake.url, "--scheduler-conf", TPU_CONF,
+            "--listen-address", "127.0.0.1:0", *extra]
+    if dev.type != "cuda":
+        argv += ["--device", dev.type]
+    return [sys.executable, "-c", _HTTP_PROBE % (argv,)]
+
+
+def probe_result(text, what):
+    lines = [line[7:] for line in text.splitlines()
+             if line.startswith("RESULT ")]
+    check(lines, f"{what}: the process printed no result")
+    return json.loads(lines[-1])
+
+
+def http_once(dev, docs, what):
+    """12.3: ``python -m kube_batch_tpu_torch --master URL --once`` on
+    ``dev`` against a fresh FakeKube holding ``docs``."""
+    fake = serve(docs)
+    landed = []
+    fake.bind_failure_hook = lambda pod_key, hostname: landed.append(
+        time.perf_counter())
+    try:
+        t0 = time.perf_counter()
+        out = subprocess.run(process_argv(fake, dev, "--once"),
+                             capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        (OUT_DIR / f"phase12_once_{dev.type}.log").write_text(
+            out.stdout + out.stderr)
+        check(out.returncode == 0, f"{what}: the process exited "
+              f"{out.returncode}: {out.stderr[-1500:]}")
+        result = probe_result(out.stdout, what)
+        truth = api_truth(fake)
+        binds = sorted(fake.bindings)
+    finally:
+        fake.close()
+    check(result["backend"] == f"torch-{dev.type}",
+          f"{what}: solved on {result['backend']}")
+    check(dev.type != "cuda" or result["launches"]["bid_dense"] > 0,
+          f"{what}: bid_dense not launched: {result['launches']}")
+    check(landed, f"{what}: the process bound nothing")
+    check(len({p for p, _ in binds}) == len(binds),
+          f"{what}: a pod was bound twice")
+    check(not truth["broken"] and not truth["over"],
+          f"{what}: gangs below minMember {truth['broken'][:5]}, nodes "
+          f"over capacity {truth['over'][:5]}")
+    return {"seconds": seconds, "first_bind_s": landed[0] - t0,
+            "last_bind_s": landed[-1] - t0, "binds": binds,
+            "bound": truth["bound"], "backend": result["backend"],
+            "launches": result["launches"], "ladder": result["solve_ladder"]}
+
+
+def journal_records(fake):
+    with fake.lock:
+        lease = fake.leases.get(f"{LEASES}/{KubeCluster.JOURNAL_LEASE_NAME}")
+        raw = ((lease or {}).get("metadata", {}).get("annotations") or {}
+               ).get(KubeCluster.JOURNAL_ANNOTATION, "")
+    return json.loads(raw).get("records", []) if raw else []
+
+
+def lease_holder(fake):
+    with fake.lock:
+        lease = fake.leases.get(f"{LEASES}/tpu-batch")
+    return (lease or {}).get("spec", {}).get("holderIdentity")
+
+
+def http_failover(dev, docs, card_bound, scale, what):
+    """12.4: leader A (``--leader-elect``, loop mode) is killed with
+    SIGKILL once the Lease annotation journals its bind intent and a
+    third of that intent's pods are bound; B, started beside it once A
+    leads, takes the Lease when it expires, reconciles A's journal and
+    binds the rest (``--once``)."""
+    n_groups = scale["http"][3]
+    pending = {f"bench/pg{g}" for g in range(
+        n_groups - scale["failover_pending_gangs"], n_groups)}
+    prebound = {}
+    for kind, doc in docs:
+        if kind != "Pod":
+            continue
+        md = doc["metadata"]
+        key = f"{md['namespace']}/{md['name']}"
+        group = f"{md['namespace']}/{md['annotations'][GROUP_NAME_ANNOTATION_KEY]}"
+        if group not in pending and key in card_bound:
+            prebound[key] = card_bound[key]
+    fake = serve(docs, bound=prebound)
+    state = {"delay": scale["failover_bind_delay_s"], "times": []}
+
+    def hold_bind(pod_key, hostname):
+        state["times"].append(time.perf_counter())
+        if state["delay"]:
+            time.sleep(state["delay"])
+        return None
+
+    fake.bind_failure_hook = hold_bind
+    argv = ("--leader-elect", "--lock-object-namespace", LEASE_NS)
+    logs = {name: open(OUT_DIR / f"phase12_failover_{name}.log", "w+")
+            for name in ("a", "b")}
+    procs = {}
+    try:
+        t0 = time.perf_counter()
+        procs["a"] = subprocess.Popen(process_argv(fake, dev, *argv),
+                                      stdout=logs["a"], stderr=logs["a"])
+        a_identity = f"-{procs['a'].pid}"
+        deadline = time.perf_counter() + 300.0
+        while not (lease_holder(fake) or "").endswith(a_identity):
+            check(procs["a"].poll() is None and time.perf_counter()
+                  < deadline, f"{what}: leader A never took the Lease")
+            time.sleep(0.05)
+        t_lead = time.perf_counter() - t0
+        procs["b"] = subprocess.Popen(
+            process_argv(fake, dev, *argv, "--once"),
+            stdout=logs["b"], stderr=logs["b"])
+        cut = None
+        while cut is None:
+            check(procs["a"].poll() is None and time.perf_counter()
+                  < deadline, f"{what}: no cut point: A exited or its "
+                  f"binds drained first ({len(fake.bindings)} binds)")
+            records = journal_records(fake)
+            with fake.lock:
+                landed = {p for p, _ in fake.bindings}
+            for rec in records:
+                pods = [t["pod"] for t in rec["tasks"]]
+                done = sum(p in landed for p in pods)
+                if done * 3 >= len(pods):
+                    cut = {"records": len(records), "tasks": len(pods),
+                           "bound": done, "seq": rec["seq"]}
+                    break
+            if cut is None:
+                time.sleep(0.01)
+        procs["a"].kill()
+        t_kill = time.perf_counter()
+        procs["a"].wait(timeout=60)
+        state["delay"] = 0.0
+        cut["binds_before"] = len(fake.bindings)
+        check(procs["b"].wait(timeout=300) == 0,
+              f"{what}: successor B exited {procs['b'].returncode}")
+        seconds = time.perf_counter() - t0
+        logs["b"].seek(0)
+        result = probe_result(logs["b"].read(), f"{what} B")
+        after = [t - t_kill for t in state["times"] if t > t_kill + 1.0]
+        truth = api_truth(fake)
+        binds = list(fake.bindings)
+        left = KubeCluster(KubeConfig(fake.url),
+                           watch_kinds=()).list_bind_intents()
+        holder = lease_holder(fake)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+        for f in logs.values():
+            f.close()
+        fake.close()
+    rec = result["recovery"] or {}
+    check(rec.get("intents_scanned", 0) >= 1 and rec.get("errors") == 0,
+          f"{what}: B's recovery {rec}")
+    check(result["backend"] == f"torch-{dev.type}"
+          and (dev.type != "cuda" or result["launches"]["bid_dense"] > 0),
+          f"{what}: B solved on {result['backend']}, launches "
+          f"{result['launches']}")
+    check(after, f"{what}: B bound nothing")
+    check(not left, f"{what}: the journal still holds {len(left)} intents")
+    check(len({p for p, _ in binds}) == len(binds),
+          f"{what}: a pod was bound twice")
+    check(len(truth["bound"]) == truth["pods"],
+          f"{what}: {len(truth['bound'])} of {truth['pods']} pods bound")
+    check(not truth["broken"] and not truth["over"],
+          f"{what}: gangs below minMember {truth['broken'][:5]}, nodes "
+          f"over capacity {truth['over'][:5]}")
+    check(holder == "", f"{what}: B left the Lease held by {holder!r}")
+    return {"seconds": seconds, "a_leads_after_s": t_lead, "cut": cut,
+            "prebound": len(prebound),
+            "successor_first_bind_s": min(after),
+            "successor_binds": len(after), "recovery": {
+                k: rec.get(k) for k in ("intents_scanned", "outcomes",
+                                        "gangs_repaired", "gangs_evicted")},
+            "backend": result["backend"], "launches": result["launches"],
+            "pods_left": truth["pods"]}
+
+
+def run_phase12(dev, scale=PHASE12):
+    """Phase 12: the perf harness in this process, then the process over
+    HTTP against the FakeKube."""
+    out, t_phase = {}, time.perf_counter()
+    for name, kw in scale["density"]:
+        what = f"phase 12.1 density {name}"
+        out[name] = density_run(dev, what, kw)
+        d = out[name]
+        log(f"{what}: {kw['total_pods']} pods running in "
+            f"{d['wall_seconds']} s ({d['pods_per_second']} pods/s), "
+            f"{d['cycles']} cycles ({d['micro']} micro), {d['solving']} "
+            f"solving on {d['rungs']}, launches {d['launches']}; latency ms "
+            f"{json.dumps(d['latency_ms'])}")
+
+    what = "phase 12.2 multitenant-compare"
+    out["multitenant"] = multitenant_run(dev, what, scale["multitenant"])
+    m = out["multitenant"]
+    for action in ("allocate_tpu", "allocate"):
+        r = m[action]
+        log(f"{what} {action}: tenant B {r['tenant_b_running']} admitted, "
+            f"{r['besteffort_backfilled']} backfilled, "
+            f"{r['tenant_a_evicted']} evicted, admission ms "
+            f"{json.dumps(r['admission_ms'])}, {r['wall_seconds']} s, "
+            f"launches {r['launches']}")
+    log(f"{what}: comparison {json.dumps(m['comparison'])}")
+
+    what = "phase 12.3 --master --once"
+    docs = api_documents(*scale["http"], seed=0)
+    card = http_once(dev, docs, f"{what} ({dev.type})")
+    cpu = http_once(torch.device("cpu"), docs, f"{what} (cpu)")
+    check(card["binds"] == cpu["binds"],
+          f"{what}: the card bound {len(card['binds'])} pods, the CPU "
+          f"{len(cpu['binds'])}; the (pod, node) sets differ")
+    out["http_once"] = {
+        dev.type: {k: v for k, v in card.items()
+                   if k not in ("binds", "bound")},
+        "cpu": {k: v for k, v in cpu.items() if k not in ("binds", "bound")},
+        "binds": len(card["binds"])}
+    log(f"{what}: {len(card['binds'])} binds over HTTP, card = CPU; "
+        f"{card['seconds']:.1f} s on the card (binds from "
+        f"{card['first_bind_s']:.1f} to {card['last_bind_s']:.1f} s, "
+        f"{card['launches']}), {cpu['seconds']:.1f} s on the CPU (binds "
+        f"from {cpu['first_bind_s']:.1f} to {cpu['last_bind_s']:.1f} s)")
+
+    what = "phase 12.4 Lease failover"
+    out["failover"] = fo = http_failover(dev, docs, card["bound"], scale,
+                                         what)
+    log(f"{what}: A led after {fo['a_leads_after_s']:.1f} s, killed at "
+        f"{json.dumps(fo['cut'])}; B's first bind "
+        f"{fo['successor_first_bind_s']:.1f} s after the kill, "
+        f"{fo['successor_binds']} binds on {fo['backend']} "
+        f"({fo['launches']}), recovery {json.dumps(fo['recovery'])}; "
+        f"{fo['seconds']:.1f} s")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 12: {out['seconds']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else argv
-    only_sim = args == ["--phase", "11"]
-    check(not args or only_sim,
-          f"usage: chip_smoke.py [--phase 11], not {args}")
+    only = args[1] if args in (["--phase", "11"], ["--phase", "12"]) else None
+    check(not args or only,
+          f"usage: chip_smoke.py [--phase 11|12], not {args}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -2275,17 +2886,21 @@ def main(argv=None) -> int:
     log(f"phase 1: dense group loop (SASS): {report['sass']}")
     native.join()
     check(NATIVE.native_available(), "the native floor did not build")
-    if only_sim:
-        # Phase 1, then phase 11 alone (a shorter call while phase 11
-        # is worked on); prints no result line.
-        report["sim"] = run_phase11(dev)
+    if only:
+        # Phase 1, then phase 11 or 12 alone (a shorter call while that
+        # phase is worked on); prints no result line.
+        if only == "11":
+            report["sim"] = run_phase11(dev)
+        else:
+            report["real_cluster"] = run_phase12(dev)
         report["seconds"] = time.perf_counter() - t0
         (OUT_DIR / "chip_smoke.json").write_text(
             json.dumps(report, indent=1))
         log(smi)
-        check(not report["sim"]["failures"],
-              "; ".join(report["sim"]["failures"]))
-        log(f"phases 1 and 11 passed in {report['seconds']:.1f} s")
+        if only == "11":
+            check(not report["sim"]["failures"],
+                  "; ".join(report["sim"]["failures"]))
+        log(f"phases 1 and {only} passed in {report['seconds']:.1f} s")
         return 0
 
     # -- snapshots -----------------------------------------------------------
@@ -2434,9 +3049,12 @@ def main(argv=None) -> int:
 
     # -- phase 11: the simulator on the card ---------------------------------
     report["sim"] = run_phase11(dev)
-    report["seconds"] = time.perf_counter() - t0
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     check(not report["sim"]["failures"], "; ".join(report["sim"]["failures"]))
+
+    # -- phase 12: the real-cluster process and the perf harness -------------
+    report["real_cluster"] = run_phase12(dev)
+    report["seconds"] = time.perf_counter() - t0
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     log(f"all phases passed in {report['seconds']:.1f} s")
     log(smi)

@@ -7,16 +7,14 @@ in-process store (or a YAML-loaded snapshot of one), and the leader lock is
 a lease file in the lock namespace directory — same lease/renew/retry
 timings as the reference's ConfigMap lock (server.go:49-53).
 
-A copy of the JAX package's ``cli/server.py``, edited where it named JAX
-or a module the port does not have:
-
-- the backend probe before the first cycle becomes the device choice
-  (``--device``, resolved through ``device.resolve_device`` when the
-  policy names ``allocate_tpu``), handed to ``Scheduler(..., device=)``;
-- the real-cluster adapter (``cluster/kube.py``) is not ported:
-  ``--master``, ``--kubeconfig`` and ``KubeLeaseElector`` raise
-  :class:`StartupError` naming it, and never fall back to the
-  in-process cluster.
+A copy of the JAX package's ``cli/server.py``, edited where it named JAX:
+the backend probe before the first cycle becomes the device choice
+(``--device``, resolved through ``device.resolve_device`` when the policy
+names ``allocate_tpu``, before the cluster, the cache or the first
+cycle), handed to ``Scheduler(..., device=)``. No CUDA under ``--device
+cuda`` is a :class:`StartupError`, in real-cluster mode
+(``--master``/``--kubeconfig``) too: the process never contacts the API
+server then. A kubeconfig that cannot be read is one as well.
 """
 
 from __future__ import annotations
@@ -53,13 +51,9 @@ from .state import load_cluster_state
 
 logger = logging.getLogger(__name__)
 
-# The module the real-cluster mode needs and the port does not have.
-_KUBE_ADAPTER = "kube_batch_tpu_torch/cluster/kube.py"
-
-
 class StartupError(RuntimeError):
-    """The process cannot start as asked: a mode whose module is not
-    ported, or a device that is not there. ``cli.main`` prints it and
+    """The process cannot start as asked: a device that is not there, or
+    a cluster config that cannot be read. ``cli.main`` prints it and
     exits non-zero."""
 
 
@@ -467,43 +461,89 @@ class LeaderElector:
 
 
 class KubeLeaseElector(LeaderElector):
-    """Leader election over a coordination/v1 Lease in the API server
-    (the reference's ConfigMap resourcelock analog, server.go:113-141).
-    It needs the real-cluster adapter, which the port does not have, so
-    constructing one raises."""
+    """Leader election over a coordination/v1 Lease in the API server —
+    the reference's ConfigMap resourcelock analog (server.go:113-141),
+    giving cross-HOST failover in real-cluster mode where the file lease
+    only covers processes sharing a disk. Reuses LeaderElector's
+    acquire/renew loop; only the CAS differs (API-server resourceVersion
+    instead of an flock'd file)."""
 
-    def __init__(self, cluster, namespace: str, identity: str, **_):
-        raise StartupError(
-            f"Lease leader election needs the real-cluster adapter "
-            f"({_KUBE_ADAPTER}), which is not ported; use the file lease "
-            f"(--lock-object-namespace names a directory)"
-        )
+    def __init__(
+        self,
+        cluster,
+        namespace: str,
+        identity: str,
+        name: str = "tpu-batch",
+        lease_duration: float = LEASE_DURATION,
+        renew_deadline: float = RENEW_DEADLINE,
+        retry_period: float = RETRY_PERIOD,
+    ):
+        self.cluster = cluster
+        self.namespace = namespace
+        self.name = name
+        self.identity = identity
+        self.lease_duration = lease_duration
+        self.renew_deadline = renew_deadline
+        self.retry_period = retry_period
+        self._renew_thread: Optional[threading.Thread] = None
+        self._stop = threading.Event()
+        self.is_leader = False
+        self._lost: Optional[threading.Event] = None
+        self.fenced_reason: Optional[str] = None
+        # True once this identity has EVER held the lease. release()
+        # keys on this, not on the last attempt's is_leader: a transient
+        # API failure (or lost CAS) right before shutdown flips
+        # is_leader False while the API server still records us as
+        # holder — skipping release then forces the successor to wait
+        # out the full lease_duration (r2 advisor).
+        self.held_at_least_once = False
+
+    def try_acquire(self) -> bool:
+        if self._stop.is_set():
+            # release() is clearing the lease: an in-flight renew must
+            # not re-acquire it for the dying identity.
+            return False
+        try:
+            self.is_leader = self.cluster.try_acquire_lease(
+                self.namespace, self.name, self.identity,
+                self.lease_duration,
+            )
+            if self.is_leader:
+                self.held_at_least_once = True
+        except Exception:
+            # Transient API failure: this attempt fails; the renew loop's
+            # renew_deadline decides when failing attempts lose leadership.
+            logger.exception("lease acquire attempt failed")
+            self.is_leader = False
+        return self.is_leader
+
+    def release(self) -> None:
+        self._stop.set()
+        # Drain the renew loop BEFORE clearing the holder: a renew whose
+        # API call straddles the release would otherwise re-write
+        # holderIdentity after we cleared it, re-pinning the lease to a
+        # dying process for the full lease_duration.
+        if self._renew_thread is not None:
+            self._renew_thread.join(timeout=10.0)
+        if self.held_at_least_once:
+            # release_lease clears the holder only if it is still this
+            # identity, so releasing after a genuine takeover is a no-op.
+            self.cluster.release_lease(
+                self.namespace, self.name, self.identity
+            )
+            self.is_leader = False
 
 
 def run(opt: ServerOption, cluster: Optional[ClusterAPI] = None,
         stop_event: Optional[threading.Event] = None) -> None:
     """reference app/server.go:63-141 Run."""
     register_options(opt)
-    if cluster is None:
-        if opt.master or opt.kubeconfig:
-            # Real-cluster mode (reference server.go:56-61 buildConfig).
-            raise StartupError(
-                f"--master/--kubeconfig need the real-cluster adapter "
-                f"({_KUBE_ADAPTER}), which is not ported; load a cluster "
-                f"with --cluster-state instead"
-            )
-        if opt.cluster_state:
-            cluster = load_cluster_state(
-                opt.cluster_state, simulate_kubelet=opt.simulate_kubelet
-            )
-        else:
-            cluster = InProcessCluster(simulate_kubelet=opt.simulate_kubelet)
 
-    # Resolve the device ONCE, before the cache or the first cycle, and
-    # only for a policy that solves on it (the reference probes its
-    # backend under the same condition). No CUDA under the default
-    # --device cuda is a startup error, never a quiet CPU run; a policy
-    # without allocate_tpu touches no device.
+    # Resolve the device ONCE, before the cluster, the cache or the
+    # first cycle, and only for a policy that solves on it (the
+    # reference probes its backend under the same condition). No CUDA
+    # under the default --device cuda is a startup error, never a quiet
+    # CPU run; a policy without allocate_tpu touches no device.
     from .. import actions as _actions  # noqa: F401 (registers actions)
 
     confstr = opt.scheduler_conf or DEFAULT_SCHEDULER_CONF
@@ -524,6 +564,26 @@ def run(opt: ServerOption, cluster: Optional[ClusterAPI] = None,
             f" ({torch.cuda.get_device_name(device)})"
             if device.type == "cuda" else ""
         ))
+
+    kube = None
+    if cluster is None:
+        if opt.master or opt.kubeconfig:
+            # Real-cluster mode (reference server.go:56-61 buildConfig).
+            from ..cluster.kube import KubeCluster, KubeConfig
+
+            try:
+                config = KubeConfig.resolve(
+                    kubeconfig=opt.kubeconfig, master=opt.master
+                )
+            except (OSError, ValueError) as exc:
+                raise StartupError(f"cluster config: {exc}") from exc
+            cluster = kube = KubeCluster(config)
+        elif opt.cluster_state:
+            cluster = load_cluster_state(
+                opt.cluster_state, simulate_kubelet=opt.simulate_kubelet
+            )
+        else:
+            cluster = InProcessCluster(simulate_kubelet=opt.simulate_kubelet)
 
     cache = new_scheduler_cache(
         cluster, opt.scheduler_name, opt.default_queue,
@@ -619,3 +679,6 @@ def run(opt: ServerOption, cluster: Optional[ClusterAPI] = None,
     finally:
         stop.set()
         http_server.shutdown()
+        if kube is not None:
+            # The adapter this run built stops its watch threads with it.
+            kube.stop()

@@ -6,12 +6,15 @@ the metrics endpoint, the file-lease elector and ``cli.run`` in
 ``--once`` mode with and without leader election (same bound (pod,
 node) set). The port's own cases follow: ``--device`` in place of the
 backend probe (``cuda`` raises without CUDA, the process exits non-zero
-with a message), the unported modes (``--master``, ``--kubeconfig``,
-the Lease elector) refuse with a message, as ``sim`` and ``sim-study``
-do without CUDA unless ``--device cpu`` is given, the
-``explain`` subcommand equals the reference's, and one cluster-state file
-goes through ``python -m`` of each package, one subprocess each, with
-equal bound sets.
+with a message), the modes that refuse with a message (``sim`` and
+``sim-study`` without CUDA unless ``--device cpu`` is given, ``--master``
+without CUDA under the TPU policy, before any request, an unreadable
+``--kubeconfig``), the ``explain`` subcommand equals the reference's, and
+one cluster-state file goes through ``python -m`` of each package, one
+subprocess each, with equal bound sets. The real-cluster mode:
+``--master`` and ``--kubeconfig`` (a bearer token) against the port's
+``FakeKube`` bind the example gang, and one set of API documents served
+to ``python -m`` of each package binds the same (pod, node) set.
 """
 
 import dataclasses
@@ -273,17 +276,23 @@ def test_device_flag_replaces_the_backend_probe():
     assert "--device cpu" in out.stderr
 
 
-def test_unported_modes_refuse_with_a_message():
+def test_unported_modes_refuse_with_a_message(tmp_path):
+    """What still refuses to start, each with a ``tpu-batch:`` message
+    and no traceback: ``sim`` and ``sim-study`` without CUDA,
+    ``--master`` under the TPU policy without CUDA (before any request
+    reaches the server), and a ``--kubeconfig`` that is not there. The
+    Lease elector and the real-cluster mode are ported (below)."""
     P = cli(PKGS[1])
-    for flag in ({"master": "https://k8s:6443"},
-                 {"kubeconfig": "/nonexistent/kubeconfig"}):
-        with pytest.raises(P.StartupError, match="cluster/kube.py"):
-            P.run(P.ServerOption(once=True, listen_address="127.0.0.1:0",
-                                 device="cpu", **flag))
-    with pytest.raises(P.StartupError, match="cluster/kube.py"):
-        P.server.KubeLeaseElector(None, "ns", identity="x")
-    for argv in (["--master", "https://k8s:6443", "--once", "--device",
-                  "cpu"], ["sim"], ["sim-study"]):
+    with pytest.raises(P.StartupError, match="kubeconfig"):
+        P.run(P.ServerOption(once=True, listen_address="127.0.0.1:0",
+                             device="cpu",
+                             kubeconfig=str(tmp_path / "missing")))
+    argvs = [["--kubeconfig", str(tmp_path / "missing"), "--once",
+              "--device", "cpu"]]
+    if not torch.cuda.is_available():
+        argvs += [["--master", "http://127.0.0.1:1", "--scheduler-conf",
+                   TPU_CONF, "--once"], ["sim"], ["sim-study"]]
+    for argv in argvs:
         out = port_main(*argv)
         assert out.returncode != 0, argv
         assert "tpu-batch:" in out.stderr and "Traceback" not in out.stderr
@@ -362,5 +371,129 @@ def test_both_entry_points_bind_the_same_pods(tmp_path):
             tuple(json.loads(line[5:])) for line in out.stdout.splitlines()
             if line.startswith("BIND ")
         ))
+    assert binds[0] == binds[1]
+    assert len(binds[1]) >= 10
+
+
+# ------------------------------------------- the real-cluster mode (--master)
+
+GROUP = "scheduling.incubator.k8s.io"
+
+
+def example_documents(state):
+    """A cluster-state dict as Kubernetes API documents."""
+    docs = [("Queue", {"apiVersion": f"{GROUP}/v1alpha1", "kind": "Queue",
+                       "metadata": {"name": q["name"]},
+                       "spec": {"weight": q["weight"]}})
+            for q in state["queues"]]
+    docs += [("Node", {"apiVersion": "v1", "kind": "Node",
+                       "metadata": {"name": n["name"],
+                                    "uid": f"uid-{n['name']}"},
+                       "status": {"allocatable": n["allocatable"],
+                                  "capacity": n["allocatable"]}})
+             for n in state["nodes"]]
+    docs += [("PodGroup", {"apiVersion": f"{GROUP}/v1alpha1",
+                           "kind": "PodGroup",
+                           "metadata": {"name": g["name"],
+                                        "namespace": g["namespace"]},
+                           "spec": {"minMember": g["minMember"],
+                                    "queue": g["queue"]}})
+             for g in state["podGroups"]]
+    docs += [("Pod", {"apiVersion": "v1", "kind": "Pod",
+                      "metadata": {
+                          "name": p["name"], "namespace": p["namespace"],
+                          "uid": f"uid-{p['namespace']}-{p['name']}",
+                          "annotations": {
+                              "scheduling.k8s.io/group-name": p["group"]}},
+                      "spec": {"schedulerName": "tpu-batch", "containers": [
+                          {"name": "main",
+                           "resources": {"requests": p["requests"]}}]},
+                      "status": {"phase": "Pending"}})
+             for p in state["pods"]]
+    return docs
+
+
+def fake_kube(state):
+    from kube_batch_tpu_torch.utils.fake_kube import FakeKube
+
+    fake = FakeKube()
+    for kind, doc in example_documents(state):
+        fake.create(kind, json.loads(json.dumps(doc)))
+    return fake
+
+
+def test_master_once_binds_the_example_gang(tmp_path):
+    """``python -m kube_batch_tpu_torch --master URL --once --device
+    cpu`` against the port's FakeKube binds the example gang through the
+    Binding subresource; ``--kubeconfig`` with a bearer token does the
+    same, and every request carries the token."""
+    fake = fake_kube(EXAMPLE_STATE)
+    try:
+        out = port_main("--master", fake.url, "--scheduler-conf", TPU_CONF,
+                        "--once", "--device", "cpu", "--listen-address",
+                        "127.0.0.1:0")
+        assert out.returncode == 0, out.stderr[-2000:]
+        assert sorted(p for p, _ in fake.bindings) == [
+            "default/p0", "default/p1", "default/p2"]
+        assert any(path.endswith("/podgroups/pg1/status")
+                   for path, _ in fake.status_patches)
+    finally:
+        fake.close()
+    fake = fake_kube(EXAMPLE_STATE)
+    try:
+        config = tmp_path / "kubeconfig"
+        config.write_text(yaml.safe_dump({
+            "apiVersion": "v1", "kind": "Config", "current-context": "c",
+            "contexts": [{"name": "c",
+                          "context": {"cluster": "k", "user": "u"}}],
+            "clusters": [{"name": "k", "cluster": {"server": fake.url}}],
+            "users": [{"name": "u", "user": {"token": "s3cret"}}],
+        }))
+        out = port_main("--kubeconfig", str(config), "--once", "--device",
+                        "cpu", "--listen-address", "127.0.0.1:0")
+        assert out.returncode == 0, out.stderr[-2000:]
+        assert len(fake.bindings) == 3
+        assert fake.last_auth == "Bearer s3cret"
+    finally:
+        fake.close()
+
+
+def test_both_entry_points_bind_the_same_pods_over_http():
+    """The six-node, five-gang state of the case above as API documents,
+    served by a fresh FakeKube to ``python -m`` of each package with
+    ``--master`` under the TPU policy (the JAX package with host
+    selection, the port on the CPU): equal bound (pod, node) sets."""
+    state = {
+        "queues": [{"name": "default", "weight": 1},
+                   {"name": "batch", "weight": 2}],
+        "nodes": [{"name": f"n{j}", "allocatable": {
+            "cpu": str(4 + 2 * (j % 3)), "memory": f"{8 + 4 * (j % 2)}Gi",
+            "pods": "110"}} for j in range(6)],
+        "podGroups": [{"name": f"pg{g}", "namespace": "default",
+                       "minMember": 1 + g % 3,
+                       "queue": "batch" if g % 2 else "default"}
+                      for g in range(5)],
+        "pods": [{"name": f"pg{g}-p{i}", "namespace": "default",
+                  "group": f"pg{g}", "requests": {
+                      "cpu": f"{500 * (1 + (g + i) % 3)}m",
+                      "memory": f"{512 * (1 + i % 2)}Mi"}}
+                 for g in range(5) for i in range(4)],
+    }
+    env = subprocess_env(JAX_PLATFORMS="cpu", KBT_SELECT_DEVICE="0",
+                         KBT_SOLVER="jax")
+    binds = []
+    for pkg, extra in zip(PKGS, ([], ["--device", "cpu"])):
+        fake = fake_kube(state)
+        try:
+            out = subprocess.run(
+                [sys.executable, "-m", pkg, "--master", fake.url,
+                 "--scheduler-conf", TPU_CONF, "--once", "--listen-address",
+                 "127.0.0.1:0", *extra],
+                capture_output=True, text=True, cwd=REPO, env=env,
+                timeout=300)
+            assert out.returncode == 0, out.stderr[-2000:]
+            binds.append(sorted(fake.bindings))
+        finally:
+            fake.close()
     assert binds[0] == binds[1]
     assert len(binds[1]) >= 10

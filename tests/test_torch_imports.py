@@ -23,8 +23,8 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 PKG = pathlib.Path(kube_batch_tpu_torch.__file__).parent
 
 # Modules of the process layer, of cluster truth and device-resident
-# selection, and of the simulator, named so a walk that skipped them
-# would fail.
+# selection, of the simulator, and of the real-cluster adapter and the
+# perf harness, named so a walk that skipped them would fail.
 SLICE_MODULES = (
     "kube_batch_tpu_torch.__main__",
     "kube_batch_tpu_torch.version",
@@ -47,6 +47,9 @@ SLICE_MODULES = (
     "kube_batch_tpu_torch.sim.harness",
     "kube_batch_tpu_torch.sim.cli",
     "kube_batch_tpu_torch.sim.study",
+    "kube_batch_tpu_torch.cluster.kube",
+    "kube_batch_tpu_torch.utils.fake_kube",
+    "kube_batch_tpu_torch.perf",
 )
 
 _BAD = """
@@ -103,6 +106,26 @@ def test_the_process_entry_point_loads_no_jax():
     loaded, bad, stdout = run_probe(_VERSION_PROBE)
     assert "tpu-batch version" in stdout and "torch:" in stdout
     assert "kube_batch_tpu_torch.cli" in loaded
+    assert bad == "[]"
+
+
+# The real-cluster adapter through the package's lazy exports: a
+# kubeconfig is parsed only when one is loaded, so PyYAML stays out.
+_CLUSTER_PROBE = """
+import sys
+import kube_batch_tpu_torch.cluster as cluster
+assert "kube_batch_tpu_torch.cluster.kube" not in sys.modules
+config = cluster.KubeConfig("http://127.0.0.1:1", token="t")
+cluster.KubeCluster(config, watch_kinds=())
+import kube_batch_tpu_torch.perf, kube_batch_tpu_torch.utils.fake_kube
+""" + _BAD
+
+
+def test_the_cluster_adapter_and_perf_load_no_yaml():
+    loaded, bad, _ = run_probe(_CLUSTER_PROBE)
+    assert {"kube_batch_tpu_torch.cluster.kube",
+            "kube_batch_tpu_torch.perf",
+            "kube_batch_tpu_torch.utils.fake_kube"} <= set(loaded)
     assert bad == "[]"
 
 
