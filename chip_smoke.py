@@ -139,14 +139,41 @@ phase fails. Phases:
    rest on the card and leaves the journal empty and the Lease free; no
    pod bound twice, no node over capacity, every gang whole, every pod
    bound. ``python3 chip_smoke.py --phase 12`` runs phases 1 and 12
-   alone and prints no result line.
+   alone and prints no result line;
+13. the mesh on the card, virtual shards of ``cuda:0``
+   (``solver/collectives.Mesh``; the sharded bodies run the plain
+   chain, so no bid kernel may launch in them): (1) the node-sharded
+   dense solve on 2, 4 and 8 shards at 10,000 x 1,000 (commit-style
+   rounds), 4,000 x 1,000 (pool style) and staged at 50,000 x 5,000,
+   each equal to the card's single-device ``use_kernel=False`` solve and
+   (but the staged one) to the same sharded solve on the CPU on 4
+   shards; ``flat`` and ``two-level`` forced at 50,000 x 5,000 on 2, 4
+   and 8 shards (flat = the card's ``solve_sparse(use_kernel=False)``,
+   two-level valid and reconciled, and equal to the CPU on 4 shards),
+   then the policy's own sizes on 4 shards: flat at 100,000 x 10,000 =
+   the single-device chain, two-level at 524,288 x 20,480 valid and the
+   same over two runs; the commit bytes and reconcile rounds; (2)
+   ``Scheduler.run_once`` at 50,000 x 5,000: unforced under 4 shards it
+   dispatches ``single``, launches ``bid_sparse`` and binds what the
+   mesh-less run binds; forced flat on the plain chain it reports
+   ``sparse_sharded_engaged``, mode ``flat``, 4 shards and binds what the
+   mesh-less plain chain binds; a cycle after 4 -> 2 shards reads the
+   warm plan's ``mesh-changed``; (3) ``sim --host-devices 4 --backend
+   sparse --topk 8`` (flat forced, 20 cycles, 12 nodes): card trace =
+   CPU trace; ``sim-study --preset twolevel`` on the card (1 seed, 20
+   cycles); (4) ``init_distributed`` on NCCL, world size 1, 4 virtual
+   shards: the solve = the single-device one; (5) where there are two or
+   more cards, (1)'s dense and flat cases on a mesh of distinct cards,
+   else a line that says it was not run. ``python3 chip_smoke.py
+   --phase 13`` runs phases 1 and 13 alone and prints no result line.
 
 Each phase sets the kernels' launch counters to 0 just before it drives
 the path and reads them just after (phase 7: around each cycle, from
 ``open_session`` to the solve; phases 8 and 10: around each
 ``run_once``; 10.1, 12.3 and 12.4: each subprocess starts from 0;
 phase 11: after each simulator's construction, whose warm-up solves
-launch both; 12.1 and 12.2: around each periodic and micro cycle). The
+launch both; 12.1 and 12.2: around each periodic and micro cycle; phase
+13: around each solve and ``run_once``). The
 kernels' ``launches`` in the JSON record are phase 8's first card run
 (the four cycles at the kernel's size). The next-to-last line of
 standard output is the kernels' JSON record, the last
@@ -175,6 +202,7 @@ import numpy as np
 import torch
 
 import kube_batch_tpu_torch.plugins  # noqa: F401 (registers the plugins)
+from kube_batch_tpu_torch import device as DEV
 from kube_batch_tpu_torch import metrics
 from kube_batch_tpu_torch.actions import allocate_tpu as ATPU
 from kube_batch_tpu_torch.api import (
@@ -194,8 +222,11 @@ from kube_batch_tpu_torch.solver import containment
 from kube_batch_tpu_torch.solver import device_cache as DC
 from kube_batch_tpu_torch.solver import kernels as K
 from kube_batch_tpu_torch.solver import select_device as SD
+from kube_batch_tpu_torch.solver import sharding as SH
 from kube_batch_tpu_torch.solver import snapshot as S
+from kube_batch_tpu_torch.solver import spmd as SP
 from kube_batch_tpu_torch.solver import topk as TK
+from kube_batch_tpu_torch.solver.collectives import Mesh
 from kube_batch_tpu_torch.solver.masks import CombinedMask
 from kube_batch_tpu_torch.solver.snapshot import pack_inputs
 from kube_batch_tpu_torch.solver.topk import select_candidates, topk_config
@@ -792,10 +823,10 @@ class CycleClock:
             clock.ms["select_ms"] = (time.perf_counter() - t0) * 1e3
             return out
 
-        def pack(dc, arrays):
+        def pack(dc, arrays, **kwargs):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = orig_pack(dc, arrays)
+            out = orig_pack(dc, arrays, **kwargs)
             torch.cuda.synchronize()
             clock.ms["pack_ms"] = (time.perf_counter() - t0) * 1e3
             return out
@@ -2838,12 +2869,443 @@ def run_phase12(dev, scale=PHASE12):
     log(f"phase 12: {out['seconds']:.1f} s")
     return out
 
+# -- phase 13: the mesh on the card ------------------------------------------
+
+# Shapes (tasks, nodes, queues, gangs) of phase 13. ``dense`` runs the
+# commit-style rounds (T > spmd._POOL_MAX_T), ``pool`` the pool style,
+# ``staged`` a commit-style head and pool-style tails; ``sparse`` forces
+# flat and two-level; ``flat`` and ``two_level`` are the policy's own
+# engagement sizes (T >= 2^16, and T >= 2^19 on 4 shards).
+PHASE13 = dict(
+    dense=(10_000, 1_000, 4, 100),
+    pool=(4_000, 1_000, 4, 100),
+    staged=(50_000, 5_000, 5, 500),
+    sparse=(50_000, 5_000, 5, 500),
+    flat=(100_000, 10_000, 5, 1_000),
+    two_level=(524_288, 20_480, 5, 4_096),
+    k=64,
+    shards=(2, 4, 8),
+    # The CPU runs of 13.1, on this many shards: the dense and pool
+    # shapes, and forced two-level at 50k x 5k (card = CPU; flat there is
+    # held to the card's single-device chain, and its CPU run, 54 s on
+    # the chip machine, was cut for time). The staged 50k x 5k dense
+    # solve is held to the card's single-device solve only (on the CPU
+    # its [T, N] rounds take minutes).
+    cpu_shards=4,
+    cluster=(50_000, 5_000, 5, 500),
+    sim=dict(cycles=20, seed=3, backend="sparse", topk=8,
+             workload=WorkloadSpec(nodes=12, arrival_rate=1.5,
+                                   max_jobs_in_flight=64)),
+    study=("--seeds", "1", "--cycles", "20", "--workers", "2"),
+)
+
+
+@contextlib.contextmanager
+def virtual_shards(n):
+    """The process's virtual shard count for the block."""
+    saved = DEV.host_device_count()
+    DEV.set_host_device_count(n)
+    try:
+        yield
+    finally:
+        DEV.set_host_device_count(saved)
+
+
+def zero_launches():
+    BK.bid_dense.launches = 0
+    BK.bid_sparse.launches = 0
+
+
+def read_launches():
+    return {"bid_dense": BK.bid_dense.launches,
+            "bid_sparse": BK.bid_sparse.launches}
+
+
+def timed(fn, dev):
+    _sync(dev)
+    t0 = time.perf_counter()
+    res = fn()
+    _sync(dev)
+    return res, (time.perf_counter() - t0) * 1e3
+
+
+def sharded_run(packed, mesh, dev, what, mode=None, staged=None):
+    """``solve_sharded`` over ``mesh``, with KBT_SPARSE_SHARD_MODE forced
+    to ``mode`` when given; the sharded bodies run the plain chain, so no
+    bid kernel may launch."""
+    env = {"KBT_SPARSE_SHARD_MODE": mode} if mode else {}
+    zero_launches()
+    with environ(**env):
+        res, ms = timed(
+            lambda: SH.solve_sharded(packed, mesh, staged=staged), dev)
+    check(read_launches() == {"bid_dense": 0, "bid_sparse": 0},
+          f"{what}: a bid kernel launched in the sharded bodies")
+    return res, ms, dict(SH.last_dispatch)
+
+
+def placed(res, T):
+    return int((res.assigned[:T] >= 0).sum())
+
+
+def queue_accounting(host, res, T, what):
+    """The result's queue allocation is the start plus the placed
+    requests, per queue (float64 sum against the solver's float32
+    folds: within 1.0, ten times under the 10.0 epsilon)."""
+    a = res.assigned[:T].cpu().numpy()
+    want = host.queue_allocated.astype(np.float64).copy()
+    sel = a >= 0
+    np.add.at(want, host.task_queue[:T][sel], host.task_req[:T][sel])
+    got = res.queue_allocated.cpu().numpy()
+    check(np.allclose(got, want, atol=1.0, rtol=1e-6),
+          f"{what}: queue accounting off by "
+          f"{np.abs(got - want).max():.3f}")
+    caps = host.node_max_tasks
+    counts = np.bincount(a[sel], minlength=len(caps))
+    check(((caps == 0) | (counts <= caps)).all(),
+          f"{what}: a node over its pod cap")
+
+
+def mesh_dense(dev, scale, smi):
+    """13.1, dense: the node-sharded solve on 2, 4 and 8 virtual shards
+    of the card, bit-equal to the card's single-device plain chain, and
+    (at the smaller shapes) to the same sharded solve on the CPU."""
+    out = {}
+    for name, staged in (("dense", False), ("pool", False),
+                         ("staged", True)):
+        host, T, N = build_snapshot(*scale[name], seed=0)
+        packed = pack_inputs(host, dev)
+        single = K.solve_staged if staged else K.solve
+        ref, ref_ms = timed(
+            lambda: single(packed, use_kernel=False), dev)
+        refn = ref.to_numpy()
+        rec = {"T": T, "N": N, "Tp": host.task_req.shape[0],
+               "rounds": ref.rounds, "stages": ref.stages,
+               "placed": placed(ref, T), "single_ms": ref_ms, "shards": {}}
+        for n in scale["shards"]:
+            what = f"13.1 {name} on {n} shards"
+            res, ms, disp = sharded_run(packed, Mesh([dev] * n), dev, what,
+                                        staged=staged)
+            check(disp == {"mode": "dense-spmd", "shards": n,
+                           "sparse_sharded": False}, f"{what}: {disp}")
+            same_result(res.to_numpy(), refn, what)
+            rec["shards"][n] = ms
+        if name != "staged":
+            n = scale["cpu_shards"]
+            cpu, cpu_ms = timed(lambda: SH.solve_sharded(
+                pack_inputs(host, "cpu"), Mesh(["cpu"] * n),
+                staged=staged), torch.device("cpu"))
+            same_result(cpu.to_numpy(), refn, f"13.1 {name} CPU")
+            rec["cpu_ms"] = cpu_ms
+        out[name] = rec
+        log(f"phase 13.1: dense {name} {T}x{N} (Tp {rec['Tp']}): "
+            f"{rec['rounds']} rounds, {rec['stages']} stages, placed "
+            f"{rec['placed']}; single plain {ref_ms:.1f} ms, sharded "
+            + ", ".join(f"{n}: {ms:.1f} ms" for n, ms in
+                        rec["shards"].items())
+            + (f", CPU on {scale['cpu_shards']}: {rec['cpu_ms']:.1f} ms"
+               if "cpu_ms" in rec else "") + f" ({smi})")
+    return out
+
+
+def mesh_sparse(dev, scale, smi):
+    """13.1, sparse: flat and two-level forced at 50k x 5k (card and
+    CPU), then the policy's own engagement sizes on the card."""
+    out = {}
+    k = scale["k"]
+    host, T, N = build_snapshot(*scale["sparse"], seed=0, k=k)
+    packed = pack_inputs(host, dev)
+    ref, ref_ms = timed(
+        lambda: K.solve_sparse(packed, use_kernel=False), dev)
+    refn = ref.to_numpy()
+    rec = {"T": T, "N": N, "rounds": ref.rounds, "stages": ref.stages,
+           "refills": ref.refills, "placed": placed(ref, T),
+           "single_ms": ref_ms, "flat": {}, "two_level": {}}
+    card_two = {}
+    for n in scale["shards"]:
+        mesh = Mesh([dev] * n)
+        what = f"13.1 flat on {n} shards"
+        res, ms, disp = sharded_run(packed, mesh, dev, what, mode="flat")
+        check(disp["mode"] == "flat" and disp["shards"] == n,
+              f"{what}: {disp}")
+        same_result(res.to_numpy(), refn, what)
+        rec["flat"][n] = {"ms": ms, "reconcile_rounds": res.reconcile_rounds,
+                          **SP.last_commit_stats}
+        what = f"13.1 two-level on {n} shards"
+        res, ms, disp = sharded_run(packed, mesh, dev, what,
+                                    mode="two-level")
+        check(disp["mode"] == "two-level", f"{what}: {disp}")
+        validated(host, res, T, N, what)
+        queue_accounting(host, res, T, what)
+        card_two[n] = res.to_numpy()
+        rec["two_level"][n] = {
+            "ms": ms, "rounds": res.rounds, "stages": res.stages,
+            "refills": res.refills, "placed": placed(res, T),
+            "reconcile_rounds": res.reconcile_rounds}
+    n = scale["cpu_shards"]
+    with environ(KBT_SPARSE_SHARD_MODE="two-level"):
+        res, cpu_ms = timed(lambda: SH.solve_sharded(
+            pack_inputs(host, "cpu"), Mesh(["cpu"] * n)),
+            torch.device("cpu"))
+    same_result(res.to_numpy(), card_two[n],
+                f"13.1 two-level CPU on {n} shards")
+    rec["cpu_two_level_ms"] = cpu_ms
+    out["forced_50k"] = rec
+    log(f"phase 13.1: sparse {T}x{N} K={k}: single plain {ref_ms:.1f} ms "
+        f"({rec['rounds']} rounds, {rec['refills']} refills, placed "
+        f"{rec['placed']}); flat "
+        + ", ".join(f"{n}: {r['ms']:.1f} ms" for n, r in rec["flat"].items())
+        + "; two-level "
+        + ", ".join(f"{n}: {r['ms']:.1f} ms placed {r['placed']}"
+                    for n, r in rec["two_level"].items())
+        + f"; two-level on the CPU {rec['cpu_two_level_ms']:.1f} ms, equal "
+        f"({smi})")
+    flat = rec["flat"][scale["cpu_shards"]]
+    log(f"phase 13.1: commit bytes per commit {flat['commit_bytes_exchanged']}"
+        f" (full broadcast {flat['commit_bytes_full_broadcast']}, per round "
+        f"{flat['commit_bytes_per_round']}), reconcile rounds "
+        f"{flat['reconcile_rounds']}")
+
+    # The policy's own engagement sizes, unforced, on 4 shards.
+    mesh = Mesh([dev] * 4)
+    host, T, N = build_snapshot(*scale["flat"], seed=0, k=k)
+    packed = pack_inputs(host, dev)
+    check(SH.sparse_shard_mode(host.task_req.shape[0], mesh) == "flat",
+          "13.1: the flat size is outside the flat policy")
+    ref, ref_ms = timed(
+        lambda: K.solve_sparse(packed, use_kernel=False), dev)
+    res, ms, disp = sharded_run(packed, mesh, dev, "13.1 flat unforced")
+    check(disp["mode"] == "flat", f"13.1 flat unforced: {disp}")
+    same_result(res.to_numpy(), ref.to_numpy(), "13.1 flat unforced")
+    out["flat_policy"] = {"T": T, "N": N, "single_ms": ref_ms, "ms": ms,
+                          "rounds": res.rounds, "refills": res.refills,
+                          "placed": placed(res, T),
+                          "reconcile_rounds": res.reconcile_rounds}
+    log(f"phase 13.1: flat unforced {T}x{N} on 4 shards: {ms:.1f} ms "
+        f"(single plain {ref_ms:.1f} ms), placed {placed(res, T)} ({smi})")
+    del packed, ref, res
+    host, T, N = build_snapshot(*scale["two_level"], seed=0, k=k)
+    packed = pack_inputs(host, dev)
+    check(SH.sparse_shard_mode(host.task_req.shape[0], mesh) == "two-level",
+          "13.1: the two-level size is outside the two-level policy")
+    runs = []
+    for i in range(2):
+        res, ms, disp = sharded_run(packed, mesh, dev,
+                                    f"13.1 two-level unforced run {i}")
+        check(disp["mode"] == "two-level",
+              f"13.1 two-level unforced: {disp}")
+        runs.append((res, ms))
+    (a, ms0), (b, ms1) = runs
+    same_result(a.to_numpy(), b.to_numpy(), "13.1 two-level determinism")
+    validated(host, a, T, N, "13.1 two-level unforced")
+    queue_accounting(host, a, T, "13.1 two-level unforced")
+    out["two_level_policy"] = {
+        "T": T, "N": N, "ms": [ms0, ms1], "rounds": a.rounds,
+        "stages": a.stages, "refills": a.refills, "placed": placed(a, T),
+        "reconcile_rounds": a.reconcile_rounds}
+    log(f"phase 13.1: two-level unforced {T}x{N} on 4 shards: {ms0:.1f} / "
+        f"{ms1:.1f} ms, identical, placed {placed(a, T)}, "
+        f"{a.rounds} rounds ({a.reconcile_rounds} reconcile), "
+        f"{a.refills} refills ({smi})")
+    return out
+
+
+def mesh_cycle(dev, shape, shards, what, mode=None, plain=False,
+               then=None):
+    """A cold ``Scheduler.run_once`` at 50k x 5k under ``shards`` virtual
+    shards (``mode`` forcing KBT_SPARSE_SHARD_MODE, ``plain`` the plain
+    chain on the shared action); ``then`` is a shard count for a second
+    cycle. Returns (cold cycle, binds, dispatch, second cycle)."""
+    cache = build_cluster(*shape, seed=0)
+    env = {"KBT_SPARSE_SHARD_MODE": mode} if mode else {}
+    second = None
+    try:
+        with virtual_shards(shards), environ(**env):
+            sched = Scheduler(cache, TPU_CONF, device=dev)
+            tpu = [a for a in sched.actions if a.name() == "allocate_tpu"]
+            saved = [a.use_kernel for a in tpu]
+            for a in tpu:
+                a.use_kernel = not plain
+            try:
+                cyc = scheduler_cycle(sched, dev)
+                disp = dict(SH.last_dispatch)
+                binds = dict(cache.binder.binds)
+                if then is not None:
+                    DEV.set_host_device_count(then)
+                    second = scheduler_cycle(sched, dev)
+            finally:
+                for a, u in zip(tpu, saved):
+                    a.use_kernel = u
+    finally:
+        cache.shutdown()
+    check(cyc["stats"].get("backend") == f"torch-{dev.type}",
+          f"{what}: solved on {cyc['stats'].get('backend')}")
+    check(cyc["new_fallbacks"] == 0, f"{what}: the ladder descended")
+    return cyc, binds, disp, second
+
+
+def mesh_scheduler(dev, scale, smi):
+    """13.2: ``Scheduler.run_once`` under a 4-shard mesh at 50k x 5k."""
+    out = {}
+    shape = scale["cluster"]
+    ref, ref_binds, _, _ = mesh_cycle(dev, shape, 1, "13.2 mesh-less")
+    cyc, binds, disp, second = mesh_cycle(dev, shape, 4, "13.2 unforced",
+                                          then=2)
+    check(disp["mode"] == "single" and disp["shards"] == 4,
+          f"13.2 unforced: dispatch {disp}")
+    check(dev.type != "cuda" or cyc["launches"]["bid_sparse"] > 0,
+          "13.2 unforced: bid_sparse not launched under the mesh")
+    check(binds == ref_binds, "13.2 unforced: binds differ from the "
+          "mesh-less run")
+    check(second["warm"] == "mesh-changed",
+          f"13.2: after 4 -> 2 shards the warm plan read {second['warm']}")
+    plain_ref, plain_binds, _, _ = mesh_cycle(dev, shape, 1, "13.2 plain",
+                                              plain=True)
+    flat, flat_binds, _, _ = mesh_cycle(dev, shape, 4, "13.2 flat",
+                                        mode="flat", plain=True)
+    st = flat["stats"]
+    check(st.get("sparse_sharded_engaged") is True
+          and st.get("sparse_shard_mode") == "flat"
+          and st.get("sparse_shard_count") == 4,
+          f"13.2 flat: stats {({k: st.get(k) for k in ('sparse_sharded_engaged', 'sparse_shard_mode', 'sparse_shard_count')})}")
+    check(flat_binds == plain_binds,
+          "13.2 flat: binds differ from the single-device chain's")
+    for name, c in (("mesh-less", ref), ("unforced", cyc),
+                    ("plain", plain_ref), ("flat", flat),
+                    ("after 4->2", second)):
+        out[name] = {"launches": c["launches"], "warm": c["warm"],
+                     "ms": c["ms"],
+                     **{k: c["stats"].get(k) for k in (
+                         "sparse_engaged", "sparse_sharded_engaged",
+                         "sparse_shard_mode", "sparse_shard_count",
+                         "sparse_reconcile_rounds", "solve_ms")}}
+        log(f"phase 13.2: {name}: cycle {c['ms']['wall_ms']:.1f} ms, solve "
+            f"{c['stats'].get('solve_ms')} ms, warm {c['warm']}, launches "
+            f"{c['launches']}, sharded {c['stats'].get('sparse_shard_mode')}"
+            f" ({smi})")
+    out["binds"] = len(binds)
+    out["launches"] = cyc["launches"]
+    return out
+
+
+def mesh_entry_points(dev, scale, smi):
+    """13.3: ``sim --host-devices 4 --backend sparse --topk 8`` card =
+    CPU (flat forced, so the sharded path runs), and ``sim-study --preset
+    twolevel`` on the card."""
+    before = metrics.solver_sparse_sharded.total()
+    with virtual_shards(4), environ(KBT_SPARSE_SHARD_MODE="flat"):
+        card, host = sim_card_and_cpu(dev, "13.3 sim", **scale["sim"])
+    check(card["records"] == host["records"],
+          f"13.3 sim: card trace != CPU trace at "
+          f"{sim_first_diff(card['records'], host['records'])}")
+    sharded = int(metrics.solver_sparse_sharded.total() - before)
+    check(sharded > 0, "13.3 sim: no sharded sparse solve ran")
+    out = {"sim": {"card": sim_summary(card), "cpu": sim_summary(host),
+                   "sharded_solves": sharded}}
+    log(f"phase 13.3: sim --host-devices 4 (flat): {len(card['records'])} "
+        f"cycles, card {card['seconds']:.1f} s = CPU {host['seconds']:.1f} "
+        f"s record for record, {sharded} sharded solves ({smi})")
+    path = OUT_DIR / "phase13_study.json"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "kube_batch_tpu_torch", "sim-study",
+         "--preset", "twolevel", "--device", dev.type, *scale["study"],
+         "--out", str(path), "--quiet"],
+        capture_output=True, text=True, timeout=600,
+    )
+    check(proc.returncode == 0,
+          f"13.3 sim-study: exit {proc.returncode}: {proc.stderr[-2000:]}")
+    study = json.loads(path.read_text())
+    verdict = study.get("verdict") or {}
+    out["study"] = {"seconds": time.perf_counter() - t0,
+                    "verdict": verdict, "per_seed": study.get("per_seed")}
+    log(f"phase 13.3: sim-study --preset twolevel on the card: "
+        f"{verdict.get('verdict')} (density median delta "
+        f"{verdict.get('density_dom_median_delta')}, fairness "
+        f"{verdict.get('fairness_jain_median_delta')}) in "
+        f"{out['study']['seconds']:.1f} s ({smi})")
+    return out
+
+
+def mesh_distributed(dev, scale, smi):
+    """13.4: ``init_distributed`` on NCCL, world size 1, 4 virtual
+    shards; the cross-process leg of the collectives on the card."""
+    import torch.distributed as dist
+
+    from kube_batch_tpu_torch.solver.collectives import _gather_processes
+
+    host, T, N = build_snapshot(*scale["pool"], seed=0)
+    packed = pack_inputs(host, dev)
+    ref = K.solve(packed, use_kernel=False).to_numpy()
+    check(SH.init_distributed(f"127.0.0.1:{free_port()}", 1, 0, device=dev),
+          "13.4: init_distributed did not join")
+    try:
+        want = "nccl" if dev.type == "cuda" else "gloo"
+        check(dist.get_backend() == want, f"13.4: not {want}")
+        check(SH.init_distributed("127.0.0.1:1", 1, 0, device=dev),
+              "13.4: a second join is not idempotent")
+        x = torch.arange(12, device=dev, dtype=torch.int32).reshape(2, 6)
+        check(torch.equal(_gather_processes(x), x),
+              "13.4: the NCCL leg changed a world-1 gather")
+        with virtual_shards(4):
+            mesh = SH.default_mesh(device=dev)
+            check(mesh is not None and mesh.size == 4 and mesh.world == 1,
+                  f"13.4: mesh {mesh}")
+            res, ms, _ = sharded_run(packed, mesh, dev, "13.4", staged=False)
+        same_result(res.to_numpy(), ref, "13.4")
+    finally:
+        dist.destroy_process_group()
+    log(f"phase 13.4: {want} world 1, 4 virtual shards: {ms:.1f} ms, equal "
+        f"to the single-device solve ({smi})")
+    return {"ms": ms}
+
+
+def mesh_real(dev, scale, smi):
+    """13.5: 13.1's dense and flat cases on a mesh of distinct cards,
+    where there are two or more."""
+    count = torch.cuda.device_count()
+    if count < 2:
+        log(f"phase 13.5: the real multi-card mesh was not run: "
+            f"{count} CUDA device visible ({smi})")
+        return {"run": False, "devices": count}
+    mesh = Mesh([torch.device("cuda", i) for i in range(count)])
+    out = {"run": True, "devices": count}
+    host, T, N = build_snapshot(*scale["dense"], seed=0)
+    packed = pack_inputs(host, dev)
+    ref = K.solve(packed, use_kernel=False).to_numpy()
+    res, ms, _ = sharded_run(packed, mesh, dev, "13.5 dense", staged=False)
+    same_result(res.to_numpy(), ref, "13.5 dense")
+    out["dense_ms"] = ms
+    host, T, N = build_snapshot(*scale["sparse"], seed=0, k=scale["k"])
+    packed = pack_inputs(host, dev)
+    ref = K.solve_sparse(packed, use_kernel=False).to_numpy()
+    res, ms, _ = sharded_run(packed, mesh, dev, "13.5 flat", mode="flat")
+    same_result(res.to_numpy(), ref, "13.5 flat")
+    out["flat_ms"] = ms
+    log(f"phase 13.5: {count} cards: dense {out['dense_ms']:.1f} ms, flat "
+        f"{ms:.1f} ms, equal to the single-device solves ({smi})")
+    return out
+
+
+def run_phase13(dev, smi, scale=PHASE13):
+    """Phase 13: the mesh on the card (virtual shards of ``dev``)."""
+    t0 = time.perf_counter()
+    out = {"dense": mesh_dense(dev, scale, smi),
+           "sparse": mesh_sparse(dev, scale, smi)}
+    out["scheduler"] = mesh_scheduler(dev, scale, smi)
+    out["entry_points"] = mesh_entry_points(dev, scale, smi)
+    out["distributed"] = mesh_distributed(dev, scale, smi)
+    out["real_mesh"] = mesh_real(dev, scale, smi)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 13: {out['seconds']:.1f} s ({smi})")
+    return out
+
 
 def main(argv=None) -> int:
     args = sys.argv[1:] if argv is None else argv
-    only = args[1] if args in (["--phase", "11"], ["--phase", "12"]) else None
+    only = args[1] if args in (["--phase", "11"], ["--phase", "12"],
+                               ["--phase", "13"]) else None
     check(not args or only,
-          f"usage: chip_smoke.py [--phase 11|12], not {args}")
+          f"usage: chip_smoke.py [--phase 11|12|13], not {args}")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -2887,12 +3349,14 @@ def main(argv=None) -> int:
     native.join()
     check(NATIVE.native_available(), "the native floor did not build")
     if only:
-        # Phase 1, then phase 11 or 12 alone (a shorter call while that
-        # phase is worked on); prints no result line.
+        # Phase 1, then phase 11, 12 or 13 alone (a shorter call while
+        # that phase is worked on); prints no result line.
         if only == "11":
             report["sim"] = run_phase11(dev)
-        else:
+        elif only == "12":
             report["real_cluster"] = run_phase12(dev)
+        else:
+            report["mesh"] = run_phase13(dev, smi)
         report["seconds"] = time.perf_counter() - t0
         (OUT_DIR / "chip_smoke.json").write_text(
             json.dumps(report, indent=1))
@@ -3054,6 +3518,12 @@ def main(argv=None) -> int:
 
     # -- phase 12: the real-cluster process and the perf harness -------------
     report["real_cluster"] = run_phase12(dev)
+    (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+
+    # -- phase 13: the mesh on the card ---------------------------------------
+    report["mesh"] = run_phase13(dev, smi)
+    for name, n in report["mesh"]["scheduler"]["launches"].items():
+        kern[name]["phase13_launches"] = n
     report["seconds"] = time.perf_counter() - t0
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(report, indent=1))
     log(f"all phases passed in {report['seconds']:.1f} s")

@@ -171,18 +171,20 @@ class AsyncSolveHandle:
     """
 
     __slots__ = (
-        "backend", "rounds", "refills", "stages", "native_stats",
-        "_future", "_worker", "_assigned", "_error",
+        "backend", "rounds", "refills", "stages", "reconcile_rounds",
+        "native_stats", "_future", "_worker", "_assigned", "_error",
     )
 
     def __init__(self, backend: str):
         self.backend = backend
         self.rounds = 0
         # Sparse-solve forensics, populated by fetch(): the device path
-        # reports SolverResult.refills/stages (None on a dense solve),
-        # the native path snapshots native.greedy.last_solve_stats.
+        # reports SolverResult.refills/stages (None on a dense solve) and
+        # reconcile_rounds (sharded sparse only), the native path
+        # snapshots native.greedy.last_solve_stats.
         self.refills = None
         self.stages = None
+        self.reconcile_rounds = None
         self.native_stats = None
         self._future = None
         self._worker = None
@@ -218,6 +220,12 @@ class AsyncSolveHandle:
         # every round on it, so stream order covers pack → solve.
         stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
 
+        # The session's mesh: the device repeated over the process's
+        # virtual shards, or every visible card (None: one device).
+        from ..solver import default_mesh
+
+        mesh = default_mesh(device=dev)
+
         def device_solve():
             from ..solver import solve_sharded
 
@@ -225,7 +233,8 @@ class AsyncSolveHandle:
                 with (torch.cuda.stream(stream) if stream is not None
                       else nullcontext()):
                     result = solve_sharded(
-                        inputs, max_rounds=max_rounds, use_kernel=use_kernel
+                        inputs, mesh, max_rounds=max_rounds,
+                        use_kernel=use_kernel,
                     )
                     # Sim chaos seam (containment.device_fault_hook): a
                     # raise/hang here lands exactly where a real device
@@ -276,6 +285,9 @@ class AsyncSolveHandle:
             self.refills = int(result.refills)
         if result.stages is not None:
             self.stages = int(result.stages)
+        rr = getattr(result, "reconcile_rounds", None)
+        if rr is not None:
+            self.reconcile_rounds = int(rr)
 
     def fetch(self, timeout=None) -> np.ndarray:
         """The block point: the assignment vector as a host array.
@@ -923,9 +935,10 @@ class AllocateTpuAction(Action):
         metrics.update_solver_sparse(engaged, refill_rounds,
                                      fallback_reason)
         # Sharded-sparse attribution: whether the FINAL successful rung
-        # ran the slab solve sharded over a mesh (sharding.last_dispatch
-        # reflects the winning rung's dispatch). The port solves on one
-        # device, so this stays False; the key is kept for the readers.
+        # ran the slab solve sharded over the mesh, under which mode,
+        # and how many cross-shard reconciliation rounds it took
+        # (sharding.last_dispatch reflects the last solve_sharded
+        # dispatch — exactly the winning rung's).
         from ..solver import sharding as sharding_mod
 
         disp = sharding_mod.last_dispatch
@@ -934,6 +947,26 @@ class AllocateTpuAction(Action):
             and disp.get("sparse_sharded")
         )
         last_stats["sparse_sharded_engaged"] = sharded_engaged
+        if sharded_engaged:
+            last_stats["sparse_shard_mode"] = disp.get("mode")
+            last_stats["sparse_shard_count"] = disp.get("shards")
+            if handle.reconcile_rounds is not None:
+                last_stats["sparse_reconcile_rounds"] = (
+                    handle.reconcile_rounds
+                )
+            metrics.register_sparse_sharded(disp.get("mode"))
+            # Delta-packed commit accounting (spmd.note_commit_stats):
+            # per-round wire bytes of the code + accept-bit exchange
+            # against the full-state broadcast it replaced.
+            from ..solver import spmd as spmd_mod
+
+            for key in (
+                "commit_bytes_exchanged",
+                "commit_bytes_full_broadcast",
+                "commit_bytes_per_round",
+            ):
+                if key in spmd_mod.last_commit_stats:
+                    last_stats[key] = spmd_mod.last_commit_stats[key]
         # Which path produced the candidate slabs (device-resident
         # selection vs labeled host fallback) — tensorize stats carry
         # the label; the device counter is incremented at the source.

@@ -27,3 +27,28 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+# Virtual shards per device for the solver's mesh (the counterpart of
+# XLA's ``--xla_force_host_platform_device_count``): above 1,
+# ``sharding.default_mesh`` repeats the session's device this many times.
+# Process-wide, like the reference's flag; only ``sim --host-devices``
+# and the tests set it.
+_host_device_count = 1
+
+
+def set_host_device_count(n: int) -> int:
+    """Set the process's virtual shard count to ``n`` (>= 1) and return
+    it. Counterpart of ``utils/backend.py::set_host_device_count``; the
+    port has no frozen backend, so the count may also go down."""
+    global _host_device_count
+    n = int(n)
+    if n < 1:
+        raise ValueError(f"a shard count must be at least 1, not {n}")
+    _host_device_count = n
+    return n
+
+
+def host_device_count() -> int:
+    """The process's virtual shard count (1 unless set)."""
+    return _host_device_count

@@ -3,9 +3,10 @@
 A copy of the JAX package's ``sim/cli.py`` with the port's device:
 ``--device`` (``cuda`` by default, ``cpu`` on request) is where every
 scheduler of the run solves; ``--device cuda`` without CUDA exits 11
-with a message. ``--host-devices N`` with N > 1 exits 5: the port has
-no multi-device mesh yet (ROADMAP Queue A, multi-device); N = 1 is the
-one device every run has.
+with a message. ``--host-devices N`` sets the process's virtual shard
+count to N before the first solve (``device.set_host_device_count``):
+every scheduler of the run then solves on a mesh of N shards of its
+device (the reference forces N virtual CPU devices instead).
 
 Exit codes: 0 clean; 1 invariant violations (always — a sim run that
 breaks the contract must fail CI); 2 replay mismatch (placements, a
@@ -13,8 +14,7 @@ failover block, or a placement-quality scorecard);
 3 scheduler-cycle errors with ``--fail-on-cycle-errors``; 4 soak-mode
 leak/drift detector trip (``--soak``); 5 the sharded-sparse engagement
 assert failed (``--require-sparse-sharded`` — the run never solved
-through the multi-device sparse path, or ``--host-devices`` could not
-re-shape an already-initialized backend); 6 the failover drill was
+through the multi-device sparse path); 6 the failover drill was
 incomplete (``--require-kill-cuts`` — a required leader-kill cut never
 fired, or a successor recovery pass reported errors); 7 the
 divergence-repair assert failed (``--require-divergence-repaired`` —
@@ -43,7 +43,7 @@ import json
 import sys
 from typing import List, Optional
 
-from ..device import resolve_device
+from ..device import resolve_device, set_host_device_count
 
 from .harness import SIM_DEFAULT_CONF, ClusterSimulator, SimConfig
 from .trace import TraceReader
@@ -209,8 +209,8 @@ def add_sim_flags(parser: argparse.ArgumentParser) -> None:
              "not punt to the periodic authority")
     parser.add_argument(
         "--host-devices", type=int, default=0, metavar="N",
-        help="devices of the solve's mesh; the port has one device, "
-             "so N > 1 exits 5 (multi-device sharding is not ported)")
+        help="virtual shards of the run's --device for the solve's mesh, "
+             "set before the first solve (multi-device sharding smokes)")
     parser.add_argument(
         "--antientropy-every", type=int, default=None, metavar="N",
         help="anti-entropy sweep cadence for the run (cycles between "
@@ -334,14 +334,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     )
     add_sim_flags(parser)
     ns = parser.parse_args(argv)
-    if ns.host_devices > 1:
-        print(
-            f"sim: --host-devices {ns.host_devices}: the port solves on "
-            "one device; a multi-device mesh is not ported yet "
-            "(ROADMAP Queue A, multi-device)",
-            file=sys.stderr,
-        )
-        return 5
     try:
         resolve_device(ns.device)
     except RuntimeError:
@@ -352,6 +344,10 @@ def main(argv: Optional[List[str]] = None) -> int:
             file=sys.stderr,
         )
         return 11
+    if ns.host_devices:
+        # Before the harness's first solve: every default mesh of the run
+        # repeats the device this many times.
+        set_host_device_count(ns.host_devices)
     cfg = config_from_args(ns)
 
     sim = ClusterSimulator(cfg)

@@ -35,8 +35,8 @@ Presets:
 
 A copy of the JAX package's ``sim/study.py``. The presets drop the
 reference's ``KBT_SOLVER=jax`` base env (the port's sparse backend
-solves on the device already), and ``twolevel`` exits 5 with a message:
-it needs a 4-device mesh, which the port does not have yet.
+solves on the device already); ``twolevel``'s ``--host-devices 4`` runs
+each leg on a mesh of 4 virtual shards of the study's ``--device``.
 """
 
 from __future__ import annotations
@@ -332,14 +332,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     parser.add_argument("--quiet", action="store_true",
                         help="suppress the study JSON on stdout")
     ns = parser.parse_args(argv)
-    if ns.preset == "twolevel":
-        print(
-            "tpu-batch: sim-study --preset twolevel needs a 4-device "
-            "mesh; multi-device sharding is not ported yet (ROADMAP "
-            "Queue A, multi-device)",
-            file=sys.stderr,
-        )
-        return 5
     try:
         resolve_device(ns.device)
     except RuntimeError:

@@ -68,6 +68,62 @@ PACKED_INPUT_CONTRACTS = {
     "cand_info":   {"shape": [3, "C"], "dtype": "i32", "optional": True},
 }
 
+# -- sharded-solve partition contracts ---------------------------------------
+# Which dim of each SolverInputs field the multi-device solvers split
+# over the 1-D mesh; fields absent from a table are replicated values
+# under that solver. ``solver/spmd.py`` places its shards from these
+# tables, and :func:`check_shard_dims` holds every key and dim against
+# ``SOLVER_INPUT_CONTRACTS`` (the reference's lint pass over them).
+#
+# Dense SPMD (spmd._solve_spmd_local): node COLUMNS split, node/queue
+# tables and task vectors replicated.
+DENSE_SPMD_SHARD_DIMS = {
+    "node_feas": 0,
+    "group_feas": 1,
+    "pair_feas": 1,
+    "score_rows": 1,
+}
+# Sharded SPARSE solve (spmd._solve_sparse_spmd_local): every input
+# field is replicated; the task axis splits the DERIVED per-task slab
+# expansions ([T, K] candidate ids and keys, [T, K, R] idle gathers)
+# inside the shard body.
+SPARSE_SHARD_DIMS = {}
+# Two-level rack decomposition (spmd two_level=True): the per-rack phase
+# gives each shard exclusive WRITE ownership of one N/s node block along
+# these fields' node axis (sharding.rack_perm's shard→rack map). The
+# values stay replicated (the psum reconcile depends on it); the table
+# declares the logical ownership split.
+TWO_LEVEL_RACK_DIMS = {
+    "node_feas": 0,
+    "node_idle": 0,
+    "node_releasing": 0,
+    "node_cap": 0,
+    "node_task_count": 0,
+    "node_max_tasks": 0,
+}
+
+
+def check_shard_dims() -> None:
+    """Every partition table's keys are declared solver-input fields and
+    every split dim is within the field's declared rank, else
+    :class:`ContractViolation`."""
+    errors = []
+    for name, table in (("DENSE_SPMD_SHARD_DIMS", DENSE_SPMD_SHARD_DIMS),
+                        ("SPARSE_SHARD_DIMS", SPARSE_SHARD_DIMS),
+                        ("TWO_LEVEL_RACK_DIMS", TWO_LEVEL_RACK_DIMS)):
+        for field, dim in table.items():
+            contract = SOLVER_INPUT_CONTRACTS.get(field)
+            if contract is None:
+                errors.append(f"{name}: {field} is not a solver input")
+            elif not 0 <= dim < len(contract["shape"]):
+                errors.append(
+                    f"{name}: {field} dim {dim} outside its rank "
+                    f"{len(contract['shape'])}"
+                )
+    if errors:
+        raise ContractViolation("; ".join(errors))
+
+
 # NumPy and torch spellings of each contract dtype.
 _DTYPE_NAMES = {
     "f32": ("float32", "torch.float32"),

@@ -35,9 +35,14 @@ group rows ahead of the full pack, for device-resident selection
 partial's traffic into its own stats.
 
 The device is fixed when :func:`device_cache_of` first creates the
-cache (``cuda`` unless the caller asks for ``"cpu"``). The port has one
-device layout, so there is no layout token: the reference's sharded
-placement is single-device here.
+cache (``cuda`` unless the caller asks for ``"cpu"``). Residency is keyed
+by the solver's layout token (``sharding.packed_sparse_placement``): a
+token change drops every resident buffer and the whole snapshot
+re-uploads, labeled ``mesh-change``. The placement that comes with the
+token is the mesh the sharded sparse solve replicates the bundle over;
+the buffers stay on the cache's device, which is every shard's device
+on a virtual mesh (a mesh of distinct cards copies them to its other
+devices at solve time).
 
 OWNERSHIP: the returned PackedInputs buffers belong to the cache and
 are valid until the next :meth:`DeviceSnapshotCache.pack` on the same
@@ -111,7 +116,8 @@ class DeviceSnapshotCache:
     attribute), giving it exactly the lifetime of the mirror it
     shadows — same pattern as ``snapshot._TensorizeCache``."""
 
-    __slots__ = ("device", "host", "dev", "drop_reason", "_deferred")
+    __slots__ = ("device", "host", "dev", "drop_reason", "layout_token",
+                 "placement", "_deferred")
 
     def __init__(self, device=None):
         self.device = resolve_device(device)
@@ -124,6 +130,11 @@ class DeviceSnapshotCache:
         # Stats of a pack_partial() awaiting merge into the next pack()
         # (the two are one logical pack per cycle).
         self._deferred: Optional[dict] = None
+        # Solver layout the resident buffers were placed for
+        # (sharding.packed_sparse_placement) and its placement (the mesh
+        # of the sharded sparse solve, None on one device).
+        self.layout_token: Optional[str] = None
+        self.placement = None
 
     def drop(self, reason: Optional[str] = None) -> None:
         """Release every resident buffer (shutdown, tests, and an
@@ -236,7 +247,18 @@ class DeviceSnapshotCache:
             "field_outcomes": {},
         }
 
-    def pack_partial(self, arrays: Dict[str, np.ndarray]
+    def _enter_layout(self, placement, layout_token, stats) -> None:
+        """A layout token change voids every resident buffer: the next
+        uploads are labeled ``mesh-change``."""
+        if layout_token != self.layout_token:
+            if self.host:
+                self.drop("mesh-change")
+                stats["layout_change"] = True
+            self.layout_token = layout_token
+        self.placement = placement
+
+    def pack_partial(self, arrays: Dict[str, np.ndarray],
+                     placement=None, layout_token: Optional[str] = None,
                      ) -> Dict[str, torch.Tensor]:
         """Place a SUBSET of the cycle's stacked fields on the device
         ahead of the full :meth:`pack`: device-resident selection
@@ -246,6 +268,7 @@ class DeviceSnapshotCache:
         traffic stats here are deferred and merged into that pack's
         ledger, so the cycle's accounting stays whole."""
         stats = self._empty_stats()
+        self._enter_layout(placement, layout_token, stats)
         out = {
             name: self._pack_field(name, arr, stats)
             for name, arr in arrays.items()
@@ -260,20 +283,30 @@ class DeviceSnapshotCache:
             self._deferred["field_outcomes"].update(
                 stats["field_outcomes"]
             )
+            if stats.get("layout_change"):
+                self._deferred["layout_change"] = True
         return out
 
-    def pack(self, arrays: Dict[str, np.ndarray]):
+    def pack(self, arrays: Dict[str, np.ndarray], placement=None,
+             layout_token: Optional[str] = None):
         """Build a :class:`~.kernels.PackedInputs` from stacked host
         arrays (``snapshot.stack_inputs``), reusing/patching resident
         buffers per field (see the module docstring). Records per-cycle
         forensics in :data:`last_pack_stats` and exports the aggregate
-        counters through ``metrics``."""
+        counters through ``metrics``.
+
+        ``placement``/``layout_token`` key residency by the solver's
+        layout (``sharding.packed_sparse_placement``): a token change
+        drops every resident buffer — a buffer placed for one mesh or
+        mode is not patched into another — and the snapshot re-uploads,
+        labeled ``mesh-change``."""
         from .kernels import PackedInputs
 
         if contracts_enabled():
             validate_packed(arrays, where="device_cache.pack")
 
         stats = self._empty_stats()
+        self._enter_layout(placement, layout_token, stats)
         fields: Dict[str, torch.Tensor] = {}
         for name, arr in arrays.items():
             stats["bytes_total"] += arr.nbytes
@@ -299,6 +332,8 @@ class DeviceSnapshotCache:
                     if stats["field_outcomes"].get(f) == "reuse":
                         stats["reuses"] -= 1
                     stats["field_outcomes"][f] = outcome
+            if deferred.get("layout_change"):
+                stats["layout_change"] = True
         self.drop_reason = None
         last_pack_stats.clear()
         last_pack_stats.update(stats)

@@ -163,6 +163,7 @@ class SolverResult(NamedTuple):
     rounds: int                    # rounds executed
     stages: Optional[int] = None   # dense tail stages (staged / sparse)
     refills: Optional[int] = None  # tasks routed to candidate refill
+    reconcile_rounds: Optional[int] = None  # sharded sparse global rounds
 
     def to_numpy(self) -> dict:
         """Host copies: arrays for the tensors, ints for the counters."""

@@ -29,8 +29,13 @@ the same arithmetic on the device while keeping the HOST path's bits:
   node id on quantized-score ties). ``torch.topk`` promises no order
   among equal values, so every key it ranks is made unique first.
 
-The reference shards the key matrix over the class axis of its mesh;
-the port runs on one device, where that placement is the identity.
+Under a mesh (``sharding.default_mesh`` of the session's device, when
+its size divides the padded class count) the key matrix is split over
+the class axis, one block of rows per shard on the shard's device, as
+the reference shards it: scoring and top-K are independent per row, so
+each block runs the same passes and the results concatenate in shard
+order. The solver's layout token rides in the signature, so a mesh or
+mode change rebuilds every row.
 
 ``KBT_SELECT_DEVICE`` is the off switch (``0``/``off``/``host``):
 selection then takes the labelled host path. Releasing capacity also
@@ -291,7 +296,9 @@ class _DeviceTopKEngine:
 
     def __init__(self):
         self.sig = None
-        self.keys = None          # torch int32[Cp, Np] resident keys
+        # Resident int32 keys: [Cp, Np] as one block per shard of the
+        # class-axis placement (one block without a mesh), in row order.
+        self.keys = None
         self.cp = 0
         self.row_digests: Dict[int, bytes] = {}
         # Node fingerprint pins — same identity-witness rationale as
@@ -316,16 +323,19 @@ class SelectionDeviceState:
 
     __slots__ = (
         "holder", "node_f32", "node_i32", "group_feas",
-        "n_padded", "_engine",
+        "n_padded", "layout_token", "_engine",
     )
 
     def __init__(self, holder, node_f32, node_i32, group_feas,
-                 n_padded: int):
+                 n_padded: int, layout_token: Optional[str] = None):
         self.holder = holder
         self.node_f32 = node_f32
         self.node_i32 = node_i32
         self.group_feas = group_feas
         self.n_padded = int(n_padded)
+        # The pack's layout token (sharding.packed_sparse_placement),
+        # part of the engine's signature.
+        self.layout_token = layout_token
         self._engine = None
 
     def engine(self) -> _DeviceTopKEngine:
@@ -391,6 +401,20 @@ def standalone_state(node_idle: np.ndarray, node_cap: np.ndarray,
     return SelectionDeviceState(None, node_f32, node_i32, put(gf), Np)
 
 
+def _keys_placement(cp: int, dev):
+    """The mesh whose shards hold the class-axis blocks of the key
+    matrix: the session device's mesh when its size divides ``cp`` (the
+    per-row work is independent along the class axis), else None (one
+    block on ``dev``). A mesh across processes keeps one block here:
+    selection is driven by each process's host."""
+    from .sharding import default_mesh
+
+    mesh = default_mesh(device=dev)
+    if mesh is not None and mesh.world == 1 and cp % mesh.size == 0:
+        return mesh
+    return None
+
+
 def select_rows(
     state: SelectionDeviceState,
     mask,                          # masks.CombinedMask (unpadded)
@@ -415,6 +439,7 @@ def select_rows(
     Returns ``{"cand_idx", "elig_count", "any_feas", "cache_hits",
     "rows_rebuilt", "cols_patched"}`` (``cand_idx`` with the HOST
     sentinel ``N``)."""
+    from .sharding import prospective_layout_token
     from .topk import _skey_priv_row
 
     C = len(rep_idx)
@@ -422,21 +447,29 @@ def select_rows(
     dev = state.node_f32.device
     eng = state.engine()
     cp = max(_pow2(C), 1)
+    placement = _keys_placement(cp, dev)
+    devs = placement.devices if placement is not None else (dev,)
 
-    # The host selection cache's signature (the port has one device
-    # layout, so neither carries a layout token) plus the padded width.
+    # The host selection cache's signature (with the solver's layout
+    # token) plus the padded width.
     sig = (N, Np, int(k), rep_req.shape[1], eps32.tobytes(),
-           float(lr_weight), float(br_weight))
+           float(lr_weight), float(br_weight),
+           state.layout_token or prospective_layout_token())
     if (
         eng.sig != sig
         or eng.keys is None
         or eng.cp != cp
-        or eng.keys.device != dev
+        or tuple(b.device for b in eng.keys) != devs
     ):
         eng.invalidate()
         eng.sig = sig
         eng.cp = cp
-        eng.keys = torch.full((cp, Np), -1, dtype=torch.int32, device=dev)
+        eng.keys = [
+            torch.full((cp // len(devs), Np), -1, dtype=torch.int32,
+                       device=d)
+            for d in devs
+        ]
+    cb = cp // len(eng.keys)          # class rows per block
 
     # Node-churn fingerprint -> changed column set (the decision
     # procedure of _SelectionCache's warm path).
@@ -483,43 +516,58 @@ def select_rows(
             misses.append(ci)
     eng.row_digests = new_digests
 
-    def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    def put(a, d):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(d)
 
-    eps_d = put(eps32)
     group_full = np.zeros(cp, np.int64)
     group_full[:C] = mask.task_group[rep_idx]
     req_full = np.zeros((cp, rep_req.shape[1]), np.float32)
     req_full[:C] = rep_req
     fit_full = np.zeros((cp, rep_fit.shape[1]), np.float32)
     fit_full[:C] = rep_fit
-    common = (state.node_f32, state.node_i32, state.group_feas, eps_d,
-              lr_weight, br_weight)
+    # Per block: its first class row and the node stacks on its device.
+    blocks = [
+        (blk, i * cb, (
+            state.node_f32.to(blk.device), state.node_i32.to(blk.device),
+            state.group_feas.to(blk.device), put(eps32, blk.device),
+            lr_weight, br_weight,
+        ))
+        for i, blk in enumerate(eng.keys)
+    ]
 
     # 1) churned-column patch across every resident row.
     cols_patched = 0
     if hits and changed_cols is not None and len(changed_cols):
         with _minted_lock:
             _minted_cols.add(_pow2(len(changed_cols)))
-        _patch_cols(
-            eng.keys, put(changed_cols.astype(np.int64)),
-            put(req_full), put(fit_full),
-            torch.arange(cp, dtype=torch.int64, device=dev),
-            put(group_full), *common,
-        )
+        for blk, r0, common in blocks:
+            d = blk.device
+            rows = slice(r0, r0 + cb)
+            _patch_cols(
+                blk, put(changed_cols.astype(np.int64), d),
+                put(req_full[rows], d), put(fit_full[rows], d),
+                torch.arange(r0, r0 + cb, dtype=torch.int64, device=d),
+                put(group_full[rows], d), *common,
+            )
         cols_patched = len(changed_cols)
 
-    # 2) full rebuild of missed rows, chunked by the cell cap.
+    # 2) full rebuild of missed rows, chunked by the cell cap; each
+    # block rebuilds the rows it holds.
     chunk = max(1, min(cp, _MISS_CHUNK_CELLS // max(Np, 1)))
     for m0 in range(0, len(misses), chunk):
         batch = np.asarray(misses[m0:m0 + chunk], np.int64)
         with _minted_lock:
             _minted_rows.add(_pow2(len(batch)))
-        rows = put(batch)
-        _rebuild_rows(
-            eng.keys, rows, put(req_full[batch]), put(fit_full[batch]),
-            rows, put(group_full[batch]), *common,
-        )
+        for blk, r0, common in blocks:
+            sel = batch[(batch >= r0) & (batch < r0 + cb)]
+            if not sel.size:
+                continue
+            d = blk.device
+            _rebuild_rows(
+                blk, put(sel - r0, d), put(req_full[sel], d),
+                put(fit_full[sel], d), put(sel, d),
+                put(group_full[sel], d), *common,
+            )
 
     # 3) private rows: host-computed every cycle (their static score
     # addend is never cached — the host cache's rule) and written in.
@@ -534,19 +582,26 @@ def select_rows(
                 feas_all[ci:ci + 1], srow,
                 lr_weight, br_weight,
             )
-        eng.keys.index_copy_(
-            0, put(np.asarray([ci for ci, _ in priv_rows], np.int64)),
-            put(vals),
-        )
+        prow = np.asarray([ci for ci, _ in priv_rows], np.int64)
+        for blk, r0, _ in blocks:
+            sel = np.nonzero((prow >= r0) & (prow < r0 + cb))[0]
+            if sel.size:
+                blk.index_copy_(
+                    0, put(prow[sel] - r0, blk.device),
+                    put(vals[sel], blk.device),
+                )
 
-    # 4) top-K extraction and the eligibility gauge.
+    # 4) top-K extraction and the eligibility gauge, per block (rows are
+    # independent), concatenated in row order.
     kk = min(int(k), Np)
     with _minted_lock:
         _minted_topk.add((kk, N))
-    cand_dev, count_dev = _topk_rows(eng.keys, kk, N)
+    tops = [_topk_rows(blk, kk, N) for blk, _, _ in blocks]
+    cand_dev = torch.cat([c.cpu() for c, _ in tops])
+    count_dev = torch.cat([n.cpu() for _, n in tops])
     cand = np.full((C, int(k)), N, np.int32)
-    cand[:, :kk] = cand_dev[:C].cpu().numpy()
-    elig_count = count_dev[:C].cpu().numpy()
+    cand[:, :kk] = cand_dev[:C].numpy()
+    elig_count = count_dev[:C].numpy()
 
     return {
         "cand_idx": cand,

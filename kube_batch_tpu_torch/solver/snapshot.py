@@ -1088,6 +1088,7 @@ def tensorize(
     if device and tk.enabled:
         from .device_cache import device_cache_of
         from .select_device import SelectionDeviceState, device_select_enabled
+        from .sharding import packed_sparse_placement
 
         dc0 = device_cache_of(ssn.cache, named)
         if (
@@ -1096,14 +1097,18 @@ def tensorize(
             and not bool(node_rel64.any())
         ):
             try:
-                placed = dc0.pack_partial({
-                    "node_f32": node_f32_stack,
-                    "node_i32": node_i32_stack,
-                    "group_feas": group_feas,
-                })
+                placement0, token0 = packed_sparse_placement(Tp, dc0.device)
+                placed = dc0.pack_partial(
+                    {
+                        "node_f32": node_f32_stack,
+                        "node_i32": node_i32_stack,
+                        "group_feas": group_feas,
+                    },
+                    placement=placement0, layout_token=token0,
+                )
                 device_state = SelectionDeviceState(
                     ssn.cache, placed["node_f32"], placed["node_i32"],
-                    placed["group_feas"], Np,
+                    placed["group_feas"], Np, token0,
                 )
             except Exception:
                 # Labelled, never quiet: select_path reads
@@ -1271,11 +1276,19 @@ def tensorize(
     # only cold/shape-changed/bulk-dirty fields pay a full upload.
     # device_cache.last_pack_stats records which.
     from .device_cache import device_cache_of
+    from .sharding import packed_sparse_placement
 
     stacked = stack_inputs(host_inputs)
     dc = device_cache_of(ssn.cache, named)
     if dc is not None:
-        return dc.pack(stacked), ctx
+        # The token keys residency to the solver's layout (a mesh or
+        # mode flip re-uploads everything, labeled mesh-change).
+        placement, layout_token = packed_sparse_placement(
+            Tp if cand_sel is not None else 0, dc.device
+        )
+        return dc.pack(
+            stacked, placement=placement, layout_token=layout_token
+        ), ctx
     return _to_device(stacked, resolve_device(named)), ctx
 
 

@@ -110,6 +110,16 @@ class CandidateSet:
     stats: dict
 
 
+def _layout_sig_token():
+    """Solver layout token folded into the selection caches' signatures
+    (host and device): a mesh, mode or rack-map change reshuffles which
+    node block each shard owns, so carried key rows invalidate with the
+    warm plan's ``mesh-changed`` semantics."""
+    from .sharding import prospective_layout_token
+
+    return prospective_layout_token()
+
+
 def _sel_hash(c_ids: np.ndarray, n_ids: np.ndarray) -> np.ndarray:
     """Decorrelated per-(class, node) hash in [0, 1024)."""
     x = (c_ids.astype(np.uint32) * np.uint32(2654435761)) ^ (
@@ -393,13 +403,11 @@ def select_candidates(
         )
 
     # Cross-cycle key-row cache: usable only with a node fingerprint and
-    # no Releasing capacity (the releasing column is not cached). The
-    # port has one device layout, so the signature carries no layout
-    # token.
+    # no Releasing capacity (the releasing column is not cached).
     sc = _sel_cache_of(cache_holder) if node_fp is not None else None
     changed_cols = None
     sig = (N, int(k), R, eps32.tobytes(),
-           float(lr_weight), float(br_weight))
+           float(lr_weight), float(br_weight), _layout_sig_token())
     if sc is not None and not has_releasing:
         ids, vers, node_objs = node_fp
         if (

@@ -212,8 +212,9 @@ def plan_warm(ssn) -> Tuple[str, List]:
         and cur_token != ws.mesh_token
     ):
         # The solver's device layout moved under the carried verdicts
-        # (mode flip; device count is process-constant): conservatively
-        # re-solve — the two-level mode is not bit-parity.
+        # (a mode flip, or a change of the process's shard count or
+        # rack map): conservatively re-solve — the two-level mode is not
+        # bit-parity.
         return "mesh-changed", []
     if ws.has_releasing:
         return "releasing", []

@@ -647,5 +647,15 @@ def test_solve_sharded_solves_on_one_device_and_refuses_a_mesh():
     }
     assert sharding.prospective_layout_token() == "1dev:auto"
     assert (res.assigned[:2] >= 0).all()
-    with pytest.raises(NotImplementedError, match="2 devices"):
-        sharding.solve_sharded(packed, mesh=["cpu", "cpu"])
+    # A mesh of two (virtual) shards solves the node-sharded program,
+    # bit-equal to the single device's plain chain; the unported GSPMD
+    # implementation is refused.
+    plain = sharding.solve_sharded(packed, max_rounds=8, use_kernel=False)
+    two = sharding.solve_sharded(packed, mesh=["cpu", "cpu"], max_rounds=8)
+    assert sharding.last_dispatch == {
+        "mode": "dense-spmd", "shards": 2, "sparse_sharded": False,
+    }
+    assert torch.equal(two.assigned, plain.assigned)
+    assert torch.equal(two.node_idle, plain.node_idle)
+    with pytest.raises(ValueError, match="gspmd"):
+        sharding.solve_sharded(packed, mesh=["cpu", "cpu"], impl="gspmd")

@@ -23,8 +23,9 @@ REPO = pathlib.Path(__file__).resolve().parents[1]
 PKG = pathlib.Path(kube_batch_tpu_torch.__file__).parent
 
 # Modules of the process layer, of cluster truth and device-resident
-# selection, of the simulator, and of the real-cluster adapter and the
-# perf harness, named so a walk that skipped them would fail.
+# selection, of the simulator, of the real-cluster adapter and the perf
+# harness, and of the multi-device solve, named so a walk that skipped
+# them would fail.
 SLICE_MODULES = (
     "kube_batch_tpu_torch.__main__",
     "kube_batch_tpu_torch.version",
@@ -50,6 +51,9 @@ SLICE_MODULES = (
     "kube_batch_tpu_torch.cluster.kube",
     "kube_batch_tpu_torch.utils.fake_kube",
     "kube_batch_tpu_torch.perf",
+    "kube_batch_tpu_torch.solver.collectives",
+    "kube_batch_tpu_torch.solver.sharding",
+    "kube_batch_tpu_torch.solver.spmd",
 )
 
 _BAD = """

@@ -350,15 +350,26 @@ def test_sim_study_topk_equal(runs):
 
 
 def test_unported_mesh_modes_exit_with_a_message(capsys):
+    from kube_batch_tpu_torch import device
     from kube_batch_tpu_torch.sim import cli, study
 
-    assert cli.main(["--host-devices", "4", "--device", "cpu"]) == 5
-    assert "multi-device" in capsys.readouterr().err
-    assert study.main(["--preset", "twolevel", "--device", "cpu"]) == 5
-    assert "4-device mesh" in capsys.readouterr().err
+    # The mesh modes are ported: --host-devices N runs the sim on N
+    # virtual shards of --device (process-wide, so restored after), and
+    # the twolevel study runs its flat/two-level legs.
+    try:
+        assert cli.main(["--host-devices", "4", "--device", "cpu",
+                         "--cycles", "2", "--nodes", "2", "--quiet"]) == 0
+        assert device.host_device_count() == 4
+    finally:
+        device.set_host_device_count(1)
+    assert capsys.readouterr().err == ""
+    assert study.main(["--preset", "twolevel", "--device", "cpu",
+                       "--seeds", "1", "--cycles", "2", "--nodes", "2",
+                       "--quiet"]) == 0
     # One host device is the one device every run has.
     assert cli.main(["--host-devices", "1", "--device", "cpu",
                      "--cycles", "2", "--nodes", "2", "--quiet"]) == 0
+    assert device.host_device_count() == 1
 
 
 def test_sim_needs_cuda_unless_cpu_is_asked_for(capsys):
