@@ -810,7 +810,7 @@ class AllocateTpuAction(Action):
         # device worker, native rounds on a GIL-releasing worker thread);
         # the window below runs host work that does not depend on the
         # assignment, and handle.fetch() is the single block point.
-        with span("solve_dispatch", annotate=True):
+        with span("solve_dispatch"):
             try:
                 handle = self._launch_rung(rungs[0], inputs, ctx)
             except Exception as exc:
@@ -869,7 +869,7 @@ class AllocateTpuAction(Action):
         # native-floor failure escapes to the guarded cycle loop.
         ladder: list = []
         budget = containment.solve_budget()
-        with span("solve_block", annotate=True):
+        with span("solve_block"):
             assigned, handle = self._solve_ladder(
                 ssn, rungs, inputs, ctx, handle, budget, ladder
             )
@@ -1140,7 +1140,9 @@ class AllocateTpuAction(Action):
                     job = ssn.jobs.get(job_uid)
                     if job is not None:
                         job_queues[job_uid] = job.queue
-                latency_mod.LEDGER.note_placed(
+                # Each placed job's pods and their mean wait for this
+                # cycle, a fresh record per placing cycle.
+                last_stats["job_waits"] = latency_mod.LEDGER.note_placed(
                     ((task.uid, task.job) for task in placed_tasks),
                     job_queues,
                     kind=cycle_kind,

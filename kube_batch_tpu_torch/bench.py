@@ -341,7 +341,9 @@ def bench_cycle(cfg, seed=0, cache=None, trace_path=None,
             "close_gc_deferred": True,
         }
         for k, v in _atpu.last_stats.items():
-            out[k] = round(v, 1) if isinstance(v, float) else v
+            # The per-job wait record (a pair per placed job) stays out.
+            if k != "job_waits":
+                out[k] = round(v, 1) if isinstance(v, float) else v
         # Drain async bind side effects outside the timed region.
         out["drain_ok"] = cache.wait_for_side_effects(timeout=120.0)
         return out

@@ -6,10 +6,13 @@ synthetic objects through (the reference test pattern,
 actions/allocate/allocate_test.go:164-176).
 
 All handlers take the cache mutex; they mutate Jobs/Nodes/Queues maps only.
+The pod and PodGroup handlers run under an ``ingest`` span when tracing
+is on (:func:`_ingest`).
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 from typing import Optional
 
@@ -25,9 +28,26 @@ from ..api import (
     TaskInfo,
     TaskStatus,
 )
+from ..obs.tracer import TRACER
 from .util import create_shadow_pod_group, job_terminated
 
 logger = logging.getLogger(__name__)
+
+
+def _ingest(handler):
+    """Run an informer event handler under an ``ingest`` span whose
+    ``kind`` is the handler's name, the wait for the cache mutex
+    included; one test of ``TRACER.enabled`` when tracing is off."""
+    kind = handler.__name__
+
+    @functools.wraps(handler)
+    def traced(self, *args, **kwargs):
+        if not TRACER.enabled:
+            return handler(self, *args, **kwargs)
+        with TRACER.span("ingest", kind=kind):
+            return handler(self, *args, **kwargs)
+
+    return traced
 
 
 def _is_terminated(status: TaskStatus) -> bool:
@@ -206,6 +226,7 @@ class EventHandlersMixin:
             return
         self._add_task(ti)
 
+    @_ingest
     def add_pod(self, pod: Pod) -> None:
         """reference event_handlers.go:185-201"""
         if not self._accept_pod(pod):
@@ -286,6 +307,7 @@ class EventHandlersMixin:
             and old_ti.init_resreq == new_ti.init_resreq
         )
 
+    @_ingest
     def update_pod(self, old_pod: Pod, new_pod: Pod) -> None:
         """reference event_handlers.go:128-133 (deletePod + addPod)"""
         if not self._accept_pod(new_pod):
@@ -314,6 +336,7 @@ class EventHandlersMixin:
                     self._dirty_nodes.discard(node_name)
                     self._dirty_nodes_alloc.add(node_name)
 
+    @_ingest
     def delete_pod(self, pod: Pod) -> None:
         """reference event_handlers.go:162-180"""
         with self.mutex:
@@ -370,14 +393,17 @@ class EventHandlersMixin:
         if not pg.spec.queue:
             self.jobs[key].queue = self.default_queue
 
+    @_ingest
     def add_pod_group(self, pg: PodGroup) -> None:
         with self.mutex:
             self._set_pod_group(pg)
 
+    @_ingest
     def update_pod_group(self, old_pg: PodGroup, new_pg: PodGroup) -> None:
         with self.mutex:
             self._set_pod_group(new_pg)
 
+    @_ingest
     def delete_pod_group(self, pg: PodGroup) -> None:
         with self.mutex:
             key = self._job_key(pg)

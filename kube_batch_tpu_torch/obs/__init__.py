@@ -4,7 +4,8 @@ telemetry, placement latency and quality.
 Copies of the reference's ``obs`` modules:
 
 - ``tracer``: hierarchical spans across the cycle's worker threads
-  (``torch.profiler`` annotations under ``KBT_TRACE_JAX``);
+  (NVTX ranges under ``KBT_TRACE_NVTX``, ``gc`` spans for every
+  collection);
 - ``flightrecorder``: a fixed-size ring of per-cycle records (phase
   timings, solver stats, verdict counts, errors with tracebacks),
   dumped as canonical JSON on cycle error and SIGUSR1;

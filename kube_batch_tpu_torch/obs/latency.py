@@ -22,6 +22,11 @@ one, not the dispatch):
 - ``bind``        dispatch → bind applied (or failed);
 - ``total``       arrival → applied.
 
+Apart from the stages, ``note_placed`` returns the placing cycle's
+per-job wait record (the time each pod waited for that cycle to start,
+from the cycle start ``begin_cycle`` stamps), which ``allocate_tpu``
+keeps as ``last_stats["job_waits"]``.
+
 A bind failure or a preempt/evict RESTARTS the clock (``requeued``
 stage, requeue counter); ledger entries are GC'd with their pod/job
 (the metrics-GC pattern — no per-pod leak). Gang semantics: a
@@ -54,11 +59,13 @@ audit cost against the same <1%-of-an-idle-cycle budget as the tracer.
 
 from __future__ import annotations
 
+import itertools
 import json
 import logging
 import os
 import time
 from collections import deque
+from operator import itemgetter
 from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 from ..utils.lockdebug import witness_writes, wrap_lock
@@ -203,7 +210,7 @@ class PlacementLedger:
         witness_writes(self, "obs.latency", (
             "_entries", "_by_job", "_jobs", "_sketches", "_done",
             "stamped", "applied", "bind_failures", "requeues",
-            "gang_samples", "_cycle", "_cycle_kind",
+            "gang_samples", "_cycle", "_cycle_kind", "_cycle_t0",
             "_serving_jobs", "_slo_targets", "_serving_pending",
             "_job_slo_applied", "_job_slo_missed", "_slo_counts",
             "_serving_arrival", "_serving_target",
@@ -230,6 +237,7 @@ class PlacementLedger:
             self.gang_samples = 0
             self._cycle = 0
             self._cycle_kind = "periodic"
+            self._cycle_t0 = 0.0
             # -- serving SLO accounting (doc/design/serving.md) --------
             # Jobs classified serving at arrival; jobs with a latency
             # target additionally keyed into _slo_targets.
@@ -272,13 +280,15 @@ class PlacementLedger:
 
     def begin_cycle(self, cycle: int, kind: str = "periodic") -> None:
         """Stamp the current scheduling-cycle context (Scheduler
-        run_once/run_micro). Cycle numbers come from the scheduler's
-        deterministic counter, so audit records replay bit-equal."""
+        run_once/run_micro) and its start on the ledger clock. Cycle
+        numbers come from the scheduler's deterministic counter, so
+        audit records replay bit-equal."""
         if not self.enabled:
             return
         with self._lock:
             self._cycle = int(cycle)
             self._cycle_kind = kind
+            self._cycle_t0 = self._clock()
 
     def cycle_info(self) -> Tuple[int, str, float]:
         """(cycle, kind, ledger-clock now) for audit stamping."""
@@ -371,32 +381,58 @@ class PlacementLedger:
         job_queues: Dict[str, str],
         kind: str = "periodic",
         solve_s: float = 0.0,
-    ) -> None:
+    ) -> Optional[dict]:
         """The solve placed these tasks this cycle (allocate_tpu apply;
         ``uid_jobs`` is an iterable of ``(uid, job)``). Entries unknown
         to the ledger (tasks predating the process, bench sessions that
         bypass add_pod) are created here so dispatch/bind stages still
-        measure."""
+        measure.
+
+        Returns the cycle's wait record, ``{"cycle": ledger cycle,
+        "waits": [[pods placed, mean wait ms], ...]}`` with one pair
+        per job in first-placed order, where a pod's wait is
+        ``max(0, cycle start - arrival)`` on the ledger clock: the time
+        it waited for the cycle that placed it, exactly (unlike
+        ``queue_wait``, which counts the placing cycle's session too).
+        None when disabled."""
         if not self.enabled:
-            return
+            return None
+        waits: Dict[str, List[float]] = {}
         with self._lock:
             now = self._clock()
-            for uid, job in uid_jobs:
-                e = self._entries.get(uid)
-                if e is None:
-                    e = self._entries[uid] = _PodEntry(uid, uid, job, now)
-                    self._track_locked(uid, job, now)
-                    self.stamped += 1
-                e.placed_ts = now
-                e.stage = "placed"
-                e.cycle_kind = kind
-                e.solve_s = solve_s
+            t0 = self._cycle_t0
+            # A job's tasks come in runs: per-job work once a run.
+            for job, run in itertools.groupby(uid_jobs, key=itemgetter(1)):
                 queue = job_queues.get(job)
+                n, total = 0, 0.0
+                for uid, _ in run:
+                    e = self._entries.get(uid)
+                    if e is None:
+                        e = self._entries[uid] = _PodEntry(uid, uid, job, now)
+                        self._track_locked(uid, job, now)
+                        self.stamped += 1
+                    n += 1
+                    if t0 > e.arrival_ts:
+                        total += t0 - e.arrival_ts
+                    e.placed_ts = now
+                    e.stage = "placed"
+                    e.cycle_kind = kind
+                    e.solve_s = solve_s
+                    if queue:
+                        e.queue = queue
                 if queue:
-                    e.queue = queue
                     jw = self._jobs.get(job)
                     if jw is not None:
                         jw.queue = queue
+                w = waits.get(job)
+                if w is None:
+                    waits[job] = [n, total]
+                else:
+                    w[0] += n
+                    w[1] += total
+            cycle = self._cycle
+        return {"cycle": cycle,
+                "waits": [[n, total * 1e3 / n] for n, total in waits.values()]}
 
     def note_dispatched(self, uids: Iterable[str]) -> None:
         """Bind batch staged on the side-effect pool for these tasks."""

@@ -21,14 +21,53 @@ Design constraints (ISSUE 5 tentpole):
 
 ``KBT_TRACE_DIR`` enables tracing process-wide (the scheduler loop and
 the guarded error path export there); bench ``--trace`` and sim
-``--trace-out`` enable it explicitly for one run. ``KBT_TRACE_JAX=1``
-additionally wraps solver-stage spans in
-``torch.profiler.record_function`` so they show up inside
-``torch.profiler`` traces.
+``--trace-out`` enable it explicitly for one run. With
+``KBT_TRACE_NVTX=1`` and a CUDA device, every context span also pushes
+and pops a ``torch.cuda.nvtx`` range on its thread, so a device
+profiler's capture shows the program's spans on the device trace's
+clock.
+
+While enabled, the process tracer (``TRACER``) also records every
+CPython garbage collection, on any thread, as a ``gc`` span (args
+``generation``, ``collected``): ``TRACER.enable()`` installs the
+module's ``gc.callbacks`` hook and ``TRACER.disable()`` removes it. A
+collection is a process-wide event, so no other ``Tracer`` records it.
+
+Spans that name the loop's think time, the collector, the cycle's
+epilogue, the informer and each solver round (each costs one
+``enabled`` test when tracing is off; the benchmark's per-layer readers
+in ``benchmark/metrics/`` read them, and its idle breakdown names the
+device's gaps by the innermost span open across them):
+
+- ``loop.drain`` / ``loop.sleep`` (scheduler thread): ``Scheduler.run``'s
+  think-time side-effect drain, and its period wait or error backoff;
+- ``loop.park`` / ``loop.coalesce`` (scheduler thread): ``_micro_wait``'s
+  wait on the arrival event (a slice of up to 0.25 s each) and its
+  coalescing window;
+- ``cycle_epilogue`` with children ``quality``, ``flight_record``,
+  ``telemetry`` (scheduler thread): ``run_once`` / ``run_micro`` after
+  the ``cycle`` span; read as ``cycle.epilogue_ms``;
+- ``gc`` (any thread): read as ``gc.pause_pct``;
+- ``ingest`` (arg ``kind``, the handler's name; the thread that delivers
+  the event): the pod and PodGroup handlers of
+  ``cache/event_handlers.py``, the wait for ``cache.mutex`` included;
+  read as ``cache.ingest_pct``;
+- ``solve.round`` with child ``solve.sync``, the blocking fetch that
+  ends the round (device worker, adopted under ``device_solve``): each
+  round of ``solver/kernels.py``'s ``solve``, ``solve_staged`` head,
+  ``solve_sparse`` slab loop and dense tail, so a solving cycle has as
+  many as its ``rounds``; read as ``solve.round_ms`` and
+  ``solve.round_issue_ms``. The SPMD solvers (``solver/spmd.py``) have
+  none: their shard bodies are generators stepped in turns on one
+  thread, so a span open across a collective would nest under another
+  shard's;
+- ``solve.tail`` (device worker): each stage of the dense tail, its
+  selection and sort included.
 """
 
 from __future__ import annotations
 
+import gc
 import itertools
 import json
 import os
@@ -38,7 +77,7 @@ from collections import deque
 from typing import Optional
 
 TRACE_DIR_ENV = "KBT_TRACE_DIR"
-TRACE_JAX_ENV = "KBT_TRACE_JAX"
+TRACE_NVTX_ENV = "KBT_TRACE_NVTX"
 # Ring bound on buffered events: a week-long scheduler run with tracing
 # left on must stay at a fixed memory footprint (oldest spans drop, the
 # `dropped` stat records how many).
@@ -73,18 +112,12 @@ _UNSET = object()
 class _Span:
     __slots__ = (
         "tracer", "name", "args", "sid", "parent", "cycle", "t0",
-        "_prof_ctx",
     )
 
-    def __init__(self, tracer: "Tracer", name: str, args, annotate):
+    def __init__(self, tracer: "Tracer", name: str, args):
         self.tracer = tracer
         self.name = name
         self.args = args
-        self._prof_ctx = None
-        if annotate and tracer.profiler_annotations:
-            import torch
-
-            self._prof_ctx = torch.profiler.record_function(name)
 
     def __enter__(self):
         t = self.tracer
@@ -103,16 +136,16 @@ class _Span:
         override = getattr(tls, "adopted_cycle", _UNSET)
         self.cycle = t.cycle if override is _UNSET else override
         stack.append(self.sid)
-        if self._prof_ctx is not None:
-            self._prof_ctx.__enter__()
+        if t._nvtx is not None:
+            t._nvtx.range_push(self.name)
         self.t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
         t1 = time.perf_counter()
         t = self.tracer
-        if self._prof_ctx is not None:
-            self._prof_ctx.__exit__(*exc)
+        if t._nvtx is not None:
+            t._nvtx.range_pop()
         stack = t._tls.stack
         if stack and stack[-1] == self.sid:
             stack.pop()
@@ -160,7 +193,7 @@ class Tracer:
         self.capacity = capacity
         self.cycle = None              # stamped by the scheduler loop
         self.annotator = None          # e.g. the sim's virtual-time stamp
-        self.profiler_annotations = os.environ.get(TRACE_JAX_ENV) == "1"
+        self._nvtx = None              # torch.cuda.nvtx under KBT_TRACE_NVTX
         self.spans_recorded = 0
         self._events: deque = deque(maxlen=capacity)
         self._thread_names: dict = {}
@@ -175,10 +208,20 @@ class Tracer:
         if capacity is not None and capacity != self.capacity:
             self.capacity = capacity
             self._events = deque(self._events, maxlen=capacity)
+        if os.environ.get(TRACE_NVTX_ENV) == "1":
+            import torch
+
+            if torch.cuda.is_available():
+                self._nvtx = torch.cuda.nvtx
+        if self is TRACER and _on_gc not in gc.callbacks:
+            gc.callbacks.append(_on_gc)
         self.enabled = True
 
     def disable(self) -> None:
         self.enabled = False
+        if self is TRACER and _on_gc in gc.callbacks:
+            gc.callbacks.remove(_on_gc)
+        self._nvtx = None
 
     def reset(self) -> None:
         """Drop buffered events and stats (keeps enabled state).
@@ -191,10 +234,10 @@ class Tracer:
 
     # -- spans --------------------------------------------------------------
 
-    def span(self, name: str, annotate: bool = False, **args):
+    def span(self, name: str, **args):
         if not self.enabled:
             return _NULL
-        return _Span(self, name, args or None, annotate)
+        return _Span(self, name, args or None)
 
     def begin_cycle(self, cycle) -> None:
         """Stamp the cycle id every subsequent span's args carry (worker
@@ -314,12 +357,28 @@ class Tracer:
 TRACER = Tracer()
 
 
-def span(name: str, annotate: bool = False, **args):
+def _on_gc(phase: str, info: dict) -> None:
+    """``gc.callbacks`` hook of ``TRACER``: one ``gc`` span per
+    collection, on the thread that collected, under its innermost open
+    span."""
+    t = TRACER
+    if phase == "start":
+        t._tls.gc_t0 = time.perf_counter()
+        return
+    t0 = getattr(t._tls, "gc_t0", None)
+    if t0 is None or not t.enabled:
+        return
+    t._tls.gc_t0 = None
+    t.complete("gc", t0, generation=info.get("generation"),
+               collected=info.get("collected"))
+
+
+def span(name: str, **args):
     """Module-level convenience: ``with obs.span("solve"): ...``."""
     t = TRACER
     if not t.enabled:
         return _NULL
-    return _Span(t, name, args or None, annotate)
+    return _Span(t, name, args or None)
 
 
 def export_trace(path: Optional[str] = None, tag: str = "trace") -> Optional[str]:

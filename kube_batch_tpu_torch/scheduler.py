@@ -508,7 +508,8 @@ class Scheduler:
         while not stop.is_set():
             start = clock.now()
             if not self.run_once_guarded():
-                clock.wait(stop, self.cycle_error_backoff())
+                with span("loop.sleep"):
+                    clock.wait(stop, self.cycle_error_backoff())
                 continue
             elapsed = clock.now() - start
             remaining = max(0.0, self.schedule_period - elapsed)
@@ -521,14 +522,15 @@ class Scheduler:
                 # the stop event stays responsive mid-drain.
                 deadline = time.perf_counter() + remaining
                 try:
-                    while not stop.is_set():
-                        left = deadline - time.perf_counter()
-                        if left <= 0:
-                            break
-                        if self.cache.wait_for_side_effects(
-                            timeout=min(0.2, left)
-                        ):
-                            break
+                    with span("loop.drain"):
+                        while not stop.is_set():
+                            left = deadline - time.perf_counter()
+                            if left <= 0:
+                                break
+                            if self.cache.wait_for_side_effects(
+                                timeout=min(0.2, left)
+                            ):
+                                break
                 except Exception:
                     logger.exception("think-time side-effect drain failed")
                 if self.micro_enabled and self._micro_wait(stop, deadline):
@@ -538,7 +540,8 @@ class Scheduler:
                     self.early_fairness_passes += 1
                     continue
                 remaining = max(0.0, deadline - time.perf_counter())
-            clock.wait(stop, remaining)
+            with span("loop.sleep"):
+                clock.wait(stop, remaining)
         # Loop exit with tracing armed (KBT_TRACE_DIR): persist the
         # buffered spans so an operator-stopped run leaves a trace.
         export_trace(tag="trace")
@@ -652,11 +655,14 @@ class Scheduler:
             left = deadline - time.perf_counter()
             if left <= 0:
                 return False
-            if not self._micro_arrival.wait(timeout=min(left, 0.25)):
+            with span("loop.park"):
+                arrived = self._micro_arrival.wait(timeout=min(left, 0.25))
+            if not arrived:
                 continue
-            window = self._micro_tuned_window()
-            if window > 0:
-                stop.wait(window)
+            with span("loop.coalesce"):
+                window = self._micro_tuned_window()
+                if window > 0:
+                    stop.wait(window)
             self._micro_arrival.clear()
             used += 1
             try:
@@ -735,30 +741,42 @@ class Scheduler:
         finally:
             if self.watchdog is not None:
                 self.watchdog.cycle_end()
-        e2e = time.perf_counter() - cycle_start
-        metrics.update_e2e_duration(e2e)
-        RECORDER.phase("done")
-        # Quality scorecard BEFORE end_cycle: the card rides in this
-        # cycle's still-open flight record (micro cycles count toward
-        # the KBT_QUALITY_EVERY cadence exactly like the telemetry
-        # probes — under micro-primary steady state the card must not
-        # go stale). Guarded: a probe failure never fails a cycle.
-        try:
-            from .obs.quality import QUALITY
-
-            QUALITY.annotate_cycle(self.cache)
-        except Exception:
-            logger.exception("quality cycle feed failed")
-        rec = RECORDER.end_cycle(ok=ok, e2e_ms=round(e2e * 1e3, 3))
+        self._cycle_epilogue(time.perf_counter() - cycle_start, ok=ok)
         self.micro_cycles_run += 1
-        if self._telemetry:
-            try:
-                from .obs.telemetry import TELEMETRY
-
-                TELEMETRY.observe_scheduler_cycle(rec, cache=self.cache)
-            except Exception:
-                logger.exception("telemetry cycle feed failed")
         return ok
+
+    def _cycle_epilogue(self, e2e: float, **end) -> None:
+        """The cycle's bookkeeping after its ``cycle`` span, under the
+        ``cycle_epilogue`` span: the quality scorecard BEFORE end_cycle
+        (the card rides in this cycle's still-open flight record; micro
+        cycles count toward the KBT_QUALITY_EVERY cadence exactly like
+        the telemetry probes, so under micro-primary steady state the
+        card does not go stale), the flight record, then the
+        long-horizon telemetry feed (this cycle's record and resource
+        watermarks, obs/telemetry.py). Guarded: a probe failure never
+        fails a cycle."""
+        with span("cycle_epilogue"):
+            metrics.update_e2e_duration(e2e)
+            RECORDER.phase("done")
+            with span("quality"):
+                try:
+                    from .obs.quality import QUALITY
+
+                    QUALITY.annotate_cycle(self.cache)
+                except Exception:
+                    logger.exception("quality cycle feed failed")
+            with span("flight_record"):
+                rec = RECORDER.end_cycle(e2e_ms=round(e2e * 1e3, 3), **end)
+            if self._telemetry:
+                with span("telemetry"):
+                    try:
+                        from .obs.telemetry import TELEMETRY
+
+                        TELEMETRY.observe_scheduler_cycle(
+                            rec, cache=self.cache
+                        )
+                    except Exception:
+                        logger.exception("telemetry cycle feed failed")
 
     def _on_watchdog_trip(self, reason: str) -> None:
         """Fencing half of a watchdog trip: this (possibly wedged)
@@ -867,24 +885,4 @@ class Scheduler:
                     RECORDER.phase_done(
                         "close_session", (time.perf_counter() - t0) * 1e3
                     )
-        e2e = time.perf_counter() - cycle_start
-        metrics.update_e2e_duration(e2e)
-        RECORDER.phase("done")
-        # Quality scorecard BEFORE end_cycle (see run_micro).
-        try:
-            from .obs.quality import QUALITY
-
-            QUALITY.annotate_cycle(self.cache)
-        except Exception:
-            logger.exception("quality cycle feed failed")
-        rec = RECORDER.end_cycle(e2e_ms=round(e2e * 1e3, 3))
-        # Long-horizon telemetry: fold this cycle's record + resource
-        # watermarks into the time-series (obs/telemetry.py). Guarded —
-        # a probe failure must never fail a cycle.
-        if self._telemetry:
-            try:
-                from .obs.telemetry import TELEMETRY
-
-                TELEMETRY.observe_scheduler_cycle(rec, cache=self.cache)
-            except Exception:
-                logger.exception("telemetry cycle feed failed")
+        self._cycle_epilogue(time.perf_counter() - cycle_start)

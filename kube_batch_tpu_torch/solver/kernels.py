@@ -27,7 +27,10 @@ would miss:
   become stable sorts on composite integer keys.
 
 ``lax.while_loop`` becomes a Python loop that reads one flag from the
-device per round.
+device per round. With tracing on, each round runs under a
+``solve.round`` span and its blocking read of that flag under a
+``solve.sync`` child, so the spans of a solve number its ``rounds``;
+each compacted stage of the dense tail runs under ``solve.tail``.
 """
 
 from __future__ import annotations
@@ -36,6 +39,8 @@ from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from ..obs.tracer import span
 
 # Resource-dimension layout contract (dimension 0 milli-CPU, 1 MiB).
 CPU_DIM = 0
@@ -700,11 +705,13 @@ def solve(inputs, max_rounds: int = 256,
     rounds = 0
     changed = True
     while changed and rounds < max_rounds:
-        assigned, idle, ntask, qalloc, failed, any_accept = _solve_round(
-            assigned, idle, ntask, qalloc, failed, **round_kw
-        )
-        rounds += 1
-        changed = bool(any_accept)
+        with span("solve.round"):
+            assigned, idle, ntask, qalloc, failed, any_accept = _solve_round(
+                assigned, idle, ntask, qalloc, failed, **round_kw
+            )
+            rounds += 1
+            with span("solve.sync"):
+                changed = bool(any_accept)
     return SolverResult(assigned, idle, qalloc, rounds)
 
 
@@ -790,39 +797,42 @@ def _dense_tail(
             and bool(remaining.any())
         ):
             break
-        # The stage's eligible set is the cond's (same state).
-        sel_key = torch.where(remaining, inputs.task_rank, INT_MAX)
-        # lax.top_k(-sel_key, B): smallest ranks, lower index on ties.
-        idxs = torch.sort(sel_key, stable=True).indices[:B]
-        valid2 = sel_key[idxs] != INT_MAX
-        blocked_from, rank2 = tail_local_blocked(inputs, idxs, B)
-        tail_kw = dict(
-            task_req=inputs.task_req[idxs], task_fit=inputs.task_fit[idxs],
-            task_rank=rank2, task_queue=inputs.task_queue[idxs],
-            task_sel=valid2, task_ids=rank2,
-            feas=tail_subset_feas(inputs, idxs, valid2),
-            static_score=tail_subset_static(inputs, idxs),
-            fits_releasing=fits_releasing[idxs], blocked_of=blocked_from,
-            **shared_kw,
-        )
-        sub_assigned = torch.full(
-            (B,), -1, dtype=torch.int32, device=idxs.device
-        )
-        failed2 = failed[idxs]
-        changed = True
-        while changed and rounds < max_rounds:
-            (
-                sub_assigned, idle, ntask, qalloc, failed2, any_accept
-            ) = _solve_round(
-                sub_assigned, idle, ntask, qalloc, failed2, **tail_kw
+        with span("solve.tail"):
+            # The stage's eligible set is the cond's (same state).
+            sel_key = torch.where(remaining, inputs.task_rank, INT_MAX)
+            # lax.top_k(-sel_key, B): smallest ranks, lower index on ties.
+            idxs = torch.sort(sel_key, stable=True).indices[:B]
+            valid2 = sel_key[idxs] != INT_MAX
+            blocked_from, rank2 = tail_local_blocked(inputs, idxs, B)
+            tail_kw = dict(
+                task_req=inputs.task_req[idxs], task_fit=inputs.task_fit[idxs],
+                task_rank=rank2, task_queue=inputs.task_queue[idxs],
+                task_sel=valid2, task_ids=rank2,
+                feas=tail_subset_feas(inputs, idxs, valid2),
+                static_score=tail_subset_static(inputs, idxs),
+                fits_releasing=fits_releasing[idxs], blocked_of=blocked_from,
+                **shared_kw,
             )
-            rounds += 1
-            changed = bool(any_accept)
-        placed2 = sub_assigned >= 0
-        assigned[idxs] = torch.where(placed2, sub_assigned, assigned[idxs])
-        failed[idxs] = failed2
-        progressed = bool(placed2.any())
-        stages += 1
+            sub_assigned = torch.full(
+                (B,), -1, dtype=torch.int32, device=idxs.device
+            )
+            failed2 = failed[idxs]
+            changed = True
+            while changed and rounds < max_rounds:
+                with span("solve.round"):
+                    (
+                        sub_assigned, idle, ntask, qalloc, failed2, any_accept
+                    ) = _solve_round(
+                        sub_assigned, idle, ntask, qalloc, failed2, **tail_kw
+                    )
+                    rounds += 1
+                    with span("solve.sync"):
+                        changed = bool(any_accept)
+            placed2 = sub_assigned >= 0
+            assigned[idxs] = torch.where(placed2, sub_assigned, assigned[idxs])
+            failed[idxs] = failed2
+            progressed = bool(placed2.any())
+            stages += 1
     return assigned, idle, ntask, qalloc, failed, rounds, stages
 
 
@@ -862,15 +872,18 @@ def solve_staged(
     rounds = 0
     changed, still = True, T
     while changed and rounds < max_rounds and still > tail_bucket:
-        assigned, idle, ntask, qalloc, failed, any_accept = _solve_round(
-            assigned, idle, ntask, qalloc, failed, **head_kw
-        )
-        rounds += 1
-        # Handoff gauge: tasks the tail could still act on.
-        n_still = _eligible(
-            inputs, assigned, qalloc, failed, job_blocked
-        ).sum()
-        changed, still = torch.stack([any_accept.long(), n_still]).tolist()
+        with span("solve.round"):
+            assigned, idle, ntask, qalloc, failed, any_accept = _solve_round(
+                assigned, idle, ntask, qalloc, failed, **head_kw
+            )
+            rounds += 1
+            # Handoff gauge: tasks the tail could still act on.
+            n_still = _eligible(
+                inputs, assigned, qalloc, failed, job_blocked
+            ).sum()
+            with span("solve.sync"):
+                changed, still = torch.stack(
+                    [any_accept.long(), n_still]).tolist()
     assigned, idle, _, qalloc, _, rounds, stages = _dense_tail(
         inputs, assigned, idle, ntask, qalloc, failed, rounds,
         fits_releasing=fits_releasing, job_blocked=job_blocked,
@@ -989,13 +1002,15 @@ def solve_sparse(
     rounds = 0
     changed = True
     while changed and rounds < max_rounds:
-        (
-            assigned, idle, ntask, qalloc, failed, refill, any_accept
-        ) = _sparse_round(
-            assigned, idle, ntask, qalloc, failed, refill, **head_kw
-        )
-        rounds += 1
-        changed = bool(any_accept)
+        with span("solve.round"):
+            (
+                assigned, idle, ntask, qalloc, failed, refill, any_accept
+            ) = _sparse_round(
+                assigned, idle, ntask, qalloc, failed, refill, **head_kw
+            )
+            rounds += 1
+            with span("solve.sync"):
+                changed = bool(any_accept)
     refills = int(refill.sum())
     assigned, idle, _, qalloc, _, rounds, stages = _dense_tail(
         inputs, assigned, idle, ntask, qalloc, failed, rounds,
