@@ -12,7 +12,10 @@ phase fails. Phases:
 2. hold each kernel against its plain PyTorch version on the card, on
    the seeded ``EDGE_CASES`` and on the round-0 inputs of phases 3-5
    (bid and any_feas exactly equal), and the scan/segment-sum glue
-   against the CPU;
+   against the CPU; time the segmented-cumsum kernel (``csrc/scan.cu``)
+   against its plain version at T = 1,280 and 4,096 rows of phase 3's R
+   (CUDA events, 20 back-to-back calls; the kernel also alone on the
+   device, L2 flushed) and require equal bits;
 3. main path, sparse: a 50,000-pod x 5,000-node snapshot shaped like
    ``bench.py::build_cluster`` (5 weighted queues, 500 gangs, K=64 slabs
    from the port's host selection) through ``solve_auto`` with the
@@ -20,7 +23,8 @@ phase fails. Phases:
    12,000 x 1,200 (K=64; slab rounds, refills and a dense stage)
    bit-equal on the card and on the CPU (cut from
    50,000 x 5,000, 59-66 s on the CPU, when phase 14 joined: phase 8
-   holds the 50,000 x 5,000 cycle's binds to the CPU's);
+   holds the 50,000 x 5,000 cycle's binds to the CPU's); the
+   50,000 x 5,000 solve launches the scan kernel twice a commit;
 4. dense staged: the same snapshot without slabs (the path taken when
    class dedup degenerates) through ``solve_auto``; validated;
 5. dense full ``solve``: 10,000 x 1,000 (no slabs below 1,024 nodes),
@@ -699,6 +703,33 @@ def glue_matches_cpu(dev):
           "segmented cumsum on the card differs from the CPU")
 
 
+def scan_kernel_step(dev, R):
+    """The segmented-cumsum kernel against its plain version on the card
+    at a slab round's rows (1,280) and a tile's (4,096): equal bits, each
+    one's time a call over 20 back-to-back calls (CUDA events), and the
+    kernel's device time with the L2 flushed (``device_ms``)."""
+    rng = np.random.RandomState(1)
+    out = {}
+    for T in (1280, 4096):
+        x = torch.from_numpy((rng.choice([4097.0, 8191.0, 0.3], (T, R))
+                              * 997).astype(np.float32)).to(dev)
+        st = torch.from_numpy(rng.rand(T) < 0.05).to(dev)
+        st[0] = True
+        saved = K.segmented_cumsum.launches
+        got = K.segmented_cumsum(x, st)
+        want = K._segmented_cumsum_plain(x, st)
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              f"scan kernel differs from plain at T={T}, R={R}")
+        ms = event_ms(lambda: K.segmented_cumsum(x, st), reps=20)
+        dev_ms = device_ms(lambda: K.segmented_cumsum(x, st))
+        K.segmented_cumsum.launches = saved
+        plain_ms = event_ms(lambda: K._segmented_cumsum_plain(x, st),
+                            reps=20)
+        out[f"T{T}_R{R}"] = {"ms": ms, "device_ms": dev_ms,
+                             "plain_ms": plain_ms}
+    return out
+
+
 def profile_solve(packed):
     """One warm ``solve_auto`` under torch.profiler: wall ms, device
     busy ms (the sum of kernel times; one stream, so they do not
@@ -734,15 +765,31 @@ def profile_solve(packed):
 
 def run_path(packed):
     """Drive solve_auto once with the kernels, launch counts read just
-    around the run."""
+    around the run; ``commits`` counts its conflict resolutions (two
+    scans each)."""
     BK.bid_dense.launches = 0
     BK.bid_sparse.launches = 0
-    t0 = time.perf_counter()
-    res = K.solve_auto(packed, use_kernel=True)
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) * 1e3
+    K.segmented_cumsum.launches = 0
+    resolve = K._resolve_bids
+    commits = 0
+
+    def counted(*args, **kwargs):
+        nonlocal commits
+        commits += 1
+        return resolve(*args, **kwargs)
+
+    K._resolve_bids = counted
+    try:
+        t0 = time.perf_counter()
+        res = K.solve_auto(packed, use_kernel=True)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        K._resolve_bids = resolve
     launches = {"bid_dense": BK.bid_dense.launches,
-                "bid_sparse": BK.bid_sparse.launches}
+                "bid_sparse": BK.bid_sparse.launches,
+                "segmented_cumsum": K.segmented_cumsum.launches,
+                "commits": commits}
     return res, launches, ms
 
 
@@ -773,7 +820,8 @@ def ptxas_report(log_text):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             mangled = m.group(1)
-            base = re.search(r"\d(bid_(?:dense|sparse)_kernel)", mangled)
+            base = re.search(r"\d(bid_(?:dense|sparse)_kernel"
+                             r"|seg_cumsum(?:_tiled)?_kernel)", mangled)
             targs = re.search(r"_kernelILi(\d+)ELb([01])E", mangled)
             name = base.group(1) if base else mangled
             if targs:
@@ -3823,11 +3871,21 @@ def main(argv=None) -> int:
     log(f"phase 2: kernels equal their plain versions on "
         f"{kern['bid_dense']['cases']} dense and "
         f"{kern['bid_sparse']['cases']} sparse cases; glue matches the CPU")
+    report["scan"] = scan_kernel_step(dev, host_s.task_req.shape[1])
+    for shape, t in report["scan"].items():
+        log(f"phase 2: segmented_cumsum {shape}: kernel {t['ms']:.4f} ms "
+            f"a call ({t['device_ms']:.4f} on the device, L2 flushed), "
+            f"plain {t['plain_ms']:.4f} ms (events), equal bits")
 
     phases = {}
     # -- phase 3: main path, sparse -------------------------------------------
     res, launches, first_ms = run_path(packed["sparse"])
     check(launches["bid_sparse"] > 0, "phase 3: bid_sparse never launched")
+    check(launches["segmented_cumsum"] == 2 * launches["commits"] > 0,
+          f"phase 3: {launches['segmented_cumsum']} scan launches for "
+          f"{launches['commits']} commits")
+    log(f"phase 3: segmented_cumsum.launches {launches['segmented_cumsum']} "
+        f"over {launches['commits']} commits")
     validated(host_s, res, T_l, N_l, "phase 3")
     host_c, _, _ = build_snapshot(*CPU_SPARSE, seed=0, k=64)
     card = K.solve_auto(pack_inputs(host_c, dev), use_kernel=True)

@@ -1,8 +1,9 @@
-"""Build and load the bid kernels (``csrc/bid.cu``).
+"""Build and load the solver's CUDA kernels (``csrc/bid.cu``, the bid
+kernels; ``csrc/scan.cu``, the segmented prefix sum).
 
-``nvcc`` compiles the source into a shared library with a plain C
+``nvcc`` compiles the sources into one shared library with a plain C
 interface, loaded with ``ctypes``. The library goes into
-``csrc/build/<hash>/`` (ignored by git), keyed on a hash of the source
+``csrc/build/<hash>/`` (ignored by git), keyed on a hash of every source
 and the flags, at first use; later calls in the process reuse it.
 """
 
@@ -17,7 +18,7 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCE = CSRC / "bid.cu"
+SOURCES = (CSRC / "bid.cu", CSRC / "scan.cu")
 BUILD_ROOT = CSRC / "build"
 LIB_NAME = "libkbt_bid.so"
 
@@ -45,12 +46,14 @@ def nvcc_path() -> str:
             return str(Path(root) / "bin" / "nvcc")
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found: the bid kernels cannot be built")
+        raise RuntimeError("nvcc not found: the kernels cannot be built")
     return found
 
 
 def _digest() -> str:
-    h = hashlib.sha256(SOURCE.read_bytes())
+    h = hashlib.sha256()
+    for source in SOURCES:
+        h.update(source.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
 
@@ -72,7 +75,7 @@ def build() -> dict:
         return {"path": str(out), "built": False, "seconds": 0.0, "log": ""}
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f".{LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
@@ -100,5 +103,9 @@ def load_library() -> ctypes.CDLL:
         lib.kbt_bid_dense.restype = ctypes.c_int
         lib.kbt_bid_sparse.argtypes = [p] * 12 + [i, i, i, i, f, f, p]
         lib.kbt_bid_sparse.restype = ctypes.c_int
+        lib.kbt_seg_cumsum.argtypes = [p, p, p, p, ctypes.c_size_t, i, i, p]
+        lib.kbt_seg_cumsum.restype = ctypes.c_int
+        lib.kbt_seg_cumsum_scratch_bytes.argtypes = [i, i]
+        lib.kbt_seg_cumsum_scratch_bytes.restype = ctypes.c_size_t
         _loaded["lib"] = lib
         return lib

@@ -27,6 +27,7 @@ import torch
 
 from .kernels import (
     CPU_DIM,
+    MAX_R,
     MEM_DIM,
     _dyn_score_core,
     _fits_all,
@@ -34,10 +35,6 @@ from .kernels import (
     dynamic_scores,
     less_equal,
 )
-
-# Largest resource-dimension count the kernels take (the task's fit row
-# lives in registers).
-MAX_R = 8
 
 # Rows per chunk of the plain dense version: bounds its [rows, N]
 # float64 temporaries on the card at full width.

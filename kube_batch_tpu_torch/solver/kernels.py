@@ -19,7 +19,9 @@ would miss:
 - XLA rewrites ``score / SCORE_QUANTUM`` as ``score * 50.0``; the keys
   here multiply by the same constant.
 - ``lax.associative_scan`` fixes the association of the segmented
-  prefix sums; :func:`_associative_scan` repeats its odd/even recursion.
+  prefix sums; :func:`_associative_scan` repeats its odd/even recursion,
+  and on the card :func:`segmented_cumsum`'s kernel (``csrc/scan.cu``)
+  computes the same tree in one launch.
 - ``segment_sum`` adds in task order; :func:`_segment_sum` folds each
   segment in task order with ``torch.segment_reduce``, never with
   atomics.
@@ -58,6 +60,10 @@ _KEY_MAX = (1 << 20) - 1
 # The JAX package divides by SCORE_QUANTUM; XLA folds that division into
 # a multiplication by the float32 reciprocal, which rounds to exactly 50.
 _INV_QUANTUM = 50.0
+
+# Largest resource-dimension count the CUDA kernels take (the bid
+# kernels hold a task's fit row in registers).
+MAX_R = 8
 
 # Conflict-resolution commits per score pass of the plain chain.
 COMMITS_PER_ROUND = 6
@@ -301,8 +307,10 @@ def _associative_scan(combine: Callable, elems: tuple) -> tuple:
     return tuple(out)
 
 
-def segmented_cumsum(x: torch.Tensor, is_start: torch.Tensor) -> torch.Tensor:
-    """Inclusive prefix sum along axis 0 that resets where is_start."""
+def _segmented_cumsum_plain(x: torch.Tensor,
+                            is_start: torch.Tensor) -> torch.Tensor:
+    """The specification of :func:`segmented_cumsum`: the odd/even
+    recursion of eager torch ops, on any device."""
 
     def combine(a, b):
         a_flag, a_val = a
@@ -311,6 +319,66 @@ def segmented_cumsum(x: torch.Tensor, is_start: torch.Tensor) -> torch.Tensor:
         return (a_flag | b_flag, torch.where(keep, b_val, a_val + b_val))
 
     return _associative_scan(combine, (is_start, x))[1]
+
+
+def _check_scan_inputs(x: torch.Tensor, is_start: torch.Tensor) -> int:
+    """What the scan kernel takes: ``x`` float32 [T] or [T, R] with
+    R <= MAX_R, contiguous; ``is_start`` bool [T], contiguous, on x's
+    device. Raises otherwise; returns R (1 for [T])."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"x: dtype {x.dtype}, the scan kernel takes float32")
+    if x.dim() not in (1, 2):
+        raise ValueError(f"x: shape {tuple(x.shape)}, expected [T] or [T, R]")
+    R = 1 if x.dim() == 1 else x.shape[1]
+    if not 1 <= R <= MAX_R:
+        raise ValueError(f"R={R}: the kernel takes 1 to {MAX_R} columns")
+    if is_start.dtype != torch.bool:
+        raise TypeError(f"is_start: dtype {is_start.dtype}, expected bool")
+    if tuple(is_start.shape) != (x.shape[0],):
+        raise ValueError(f"is_start: shape {tuple(is_start.shape)}, "
+                         f"expected ({x.shape[0]},)")
+    if is_start.device != x.device:
+        raise ValueError(f"is_start: on {is_start.device}, expected "
+                         f"{x.device}")
+    if not (x.is_contiguous() and is_start.is_contiguous()):
+        raise ValueError("x and is_start must be contiguous")
+    return R
+
+
+def segmented_cumsum(x: torch.Tensor, is_start: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum along axis 0 that resets where is_start.
+
+    CPU tensors run :func:`_segmented_cumsum_plain`. Other tensors
+    launch the kernel of ``csrc/scan.cu`` (one launch, same bits), or
+    raise; ``segmented_cumsum.launches`` counts the launches."""
+    if x.device.type == "cpu":
+        return _segmented_cumsum_plain(x, is_start)
+    from ._build import load_library
+
+    R = _check_scan_inputs(x, is_start)
+    T = x.shape[0]
+    out = torch.empty_like(x)
+    if T == 0:
+        return out
+    lib = load_library()
+    # Columns longer than one tile of the kernel keep the tiles' totals
+    # here. Freed on return: the caching allocator hands it out again
+    # only to work queued after the kernel on this stream.
+    nbytes = lib.kbt_seg_cumsum_scratch_bytes(T, R)
+    scratch = (torch.empty(nbytes, dtype=torch.uint8, device=x.device)
+               if nbytes else None)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = lib.kbt_seg_cumsum(
+        x.data_ptr(), is_start.data_ptr(), out.data_ptr(),
+        scratch.data_ptr() if nbytes else None, nbytes, T, R, stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"scan kernel launch failed: CUDA error {err}")
+    segmented_cumsum.launches += 1
+    return out
+
+
+segmented_cumsum.launches = 0
 
 
 def segmented_cummin(x: torch.Tensor, is_start: torch.Tensor) -> torch.Tensor:
