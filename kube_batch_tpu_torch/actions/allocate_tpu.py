@@ -172,7 +172,8 @@ class AsyncSolveHandle:
 
     __slots__ = (
         "backend", "rounds", "refills", "stages", "reconcile_rounds",
-        "native_stats", "_future", "_worker", "_assigned", "_error",
+        "bid_dense", "native_stats", "_future", "_worker", "_assigned",
+        "_error",
     )
 
     def __init__(self, backend: str):
@@ -185,6 +186,9 @@ class AsyncSolveHandle:
         self.refills = None
         self.stages = None
         self.reconcile_rounds = None
+        # The dense solve's bid passes (kernels.BidDenseLaunches; None
+        # on the sparse and native paths).
+        self.bid_dense = None
         self.native_stats = None
         self._future = None
         self._worker = None
@@ -288,6 +292,7 @@ class AsyncSolveHandle:
         rr = getattr(result, "reconcile_rounds", None)
         if rr is not None:
             self.reconcile_rounds = int(rr)
+        self.bid_dense = getattr(result, "bid_dense", None)
 
     def fetch(self, timeout=None) -> np.ndarray:
         """The block point: the assignment vector as a host array.
@@ -927,6 +932,15 @@ class AllocateTpuAction(Action):
         if not engaged and fallback_reason is None:
             fallback_reason = tsparse.get("reason")
         last_stats["sparse_engaged"] = engaged
+        # The rung that produced the result, by the solver it ran.
+        last_stats["solve_path"] = (
+            "native" if backend == "native"
+            else "sparse" if engaged
+            else "staged" if handle.stages is not None
+            else "dense"
+        )
+        if handle.bid_dense is not None:
+            last_stats["bid_dense"] = handle.bid_dense._asdict()
         if engaged:
             last_stats["sparse_k"] = tsparse.get("k")
             last_stats["sparse_refill_rounds"] = refill_rounds

@@ -62,7 +62,10 @@ device's gaps by the innermost span open across them):
   thread, so a span open across a collective would nest under another
   shard's;
 - ``solve.tail`` (device worker): each stage of the dense tail, its
-  selection and sort included.
+  selection and sort included;
+- ``solve.prep`` (device worker): the full dense solve's preparation
+  before its first round (the [T, N] feasibility and static score
+  matrices, the Releasing-capacity escape); read as ``dense.prep_ms``.
 """
 
 from __future__ import annotations

@@ -32,7 +32,11 @@ would miss:
 device per round. With tracing on, each round runs under a
 ``solve.round`` span and its blocking read of that flag under a
 ``solve.sync`` child, so the spans of a solve number its ``rounds``;
-each compacted stage of the dense tail runs under ``solve.tail``.
+each compacted stage of the dense tail runs under ``solve.tail``, and
+the full dense solve's preparation (the [T, N] feasibility and static
+score matrices and the Releasing-capacity escape) under ``solve.prep``.
+A dense solve's result counts its ``bid_dense`` passes and the shape
+they saw (:class:`BidDenseLaunches`).
 """
 
 from __future__ import annotations
@@ -167,6 +171,17 @@ class PackedInputs(NamedTuple):
         )
 
 
+class BidDenseLaunches(NamedTuple):
+    """A dense solve's ``bid_dense`` passes: how many, and the shape
+    every one of them saw (host integers the solve already holds)."""
+
+    launches: int                  # 0 on the plain chain and off CUDA
+    rows: int                      # T
+    nodes: int                     # N
+    dims: int                      # R
+    static: bool                   # static score rows passed
+
+
 class SolverResult(NamedTuple):
     assigned: torch.Tensor         # i32[T] node index or -1
     node_idle: torch.Tensor        # f32[N, R] idle after assignment
@@ -175,6 +190,7 @@ class SolverResult(NamedTuple):
     stages: Optional[int] = None   # dense tail stages (staged / sparse)
     refills: Optional[int] = None  # tasks routed to candidate refill
     reconcile_rounds: Optional[int] = None  # sharded sparse global rounds
+    bid_dense: Optional[BidDenseLaunches] = None  # full-width dense rounds
 
     def to_numpy(self) -> dict:
         """Host copies: arrays for the tensors, ints for the counters."""
@@ -755,14 +771,17 @@ def solve(inputs, max_rounds: int = 256,
     """Run the round-based batched allocation to a fixed point."""
     inputs = _as_inputs(inputs)
     lr_w, br_w = _weights(inputs)
-    feas0 = build_feasibility(inputs)
+    with span("solve.prep"):
+        feas0 = build_feasibility(inputs)
+        static = build_static_score(inputs)
+        fits_releasing = _fits_releasing(inputs, feas0)
     round_kw = dict(
         task_req=inputs.task_req, task_fit=inputs.task_fit,
         task_rank=inputs.task_rank, task_queue=inputs.task_queue,
         # Global-rank tie hashes (rank == row position on full bundles).
         task_sel=inputs.task_valid, task_ids=inputs.task_rank,
-        feas=feas0, static_score=build_static_score(inputs),
-        fits_releasing=_fits_releasing(inputs, feas0),
+        feas=feas0, static_score=static,
+        fits_releasing=fits_releasing,
         blocked_of=_job_blocked_fn(inputs.task_rank, inputs.task_job),
         node_cap=inputs.node_cap, node_max_tasks=inputs.node_max_tasks,
         queue_deserved=inputs.queue_deserved,
@@ -780,7 +799,23 @@ def solve(inputs, max_rounds: int = 256,
             rounds += 1
             with span("solve.sync"):
                 changed = bool(any_accept)
-    return SolverResult(assigned, idle, qalloc, rounds)
+    return SolverResult(
+        assigned, idle, qalloc, rounds,
+        bid_dense=_bid_dense_launches(inputs, rounds, use_kernel, static),
+    )
+
+
+def _bid_dense_launches(inputs: SolverInputs, rounds: int, use_kernel: bool,
+                        static) -> BidDenseLaunches:
+    """``rounds`` full-width rounds' bid passes: one ``bid_dense``
+    launch each on the kernel path with CUDA tensors; none for an empty
+    bundle, which the wrapper does not launch, none on CPU tensors,
+    which take the plain bid, and none on the plain chain."""
+    T, R = inputs.task_fit.shape
+    on_card = inputs.task_fit.device.type == "cuda"
+    n = rounds if use_kernel and on_card and T else 0
+    return BidDenseLaunches(n, int(T), int(inputs.node_idle.shape[0]),
+                            int(R), static is not None)
 
 
 def tail_subset_feas(inputs: SolverInputs, idxs, valid2) -> torch.Tensor:
@@ -927,11 +962,12 @@ def solve_staged(
         queue_deserved=inputs.queue_deserved,
         lr_weight=lr_w, br_weight=br_w, eps=inputs.eps,
     )
+    static = build_static_score(inputs)
     head_kw = dict(
         task_req=inputs.task_req, task_fit=inputs.task_fit,
         task_rank=inputs.task_rank, task_queue=inputs.task_queue,
         task_sel=inputs.task_valid, task_ids=inputs.task_rank,
-        feas=feas0, static_score=build_static_score(inputs),
+        feas=feas0, static_score=static,
         fits_releasing=fits_releasing, blocked_of=job_blocked,
         use_kernel=use_kernel,
         **shared_kw,
@@ -952,12 +988,14 @@ def solve_staged(
             with span("solve.sync"):
                 changed, still = torch.stack(
                     [any_accept.long(), n_still]).tolist()
+    head = _bid_dense_launches(inputs, rounds, use_kernel, static)
     assigned, idle, _, qalloc, _, rounds, stages = _dense_tail(
         inputs, assigned, idle, ntask, qalloc, failed, rounds,
         fits_releasing=fits_releasing, job_blocked=job_blocked,
         shared_kw=shared_kw, max_rounds=max_rounds, tail_bucket=tail_bucket,
     )
-    return SolverResult(assigned, idle, qalloc, rounds, stages)
+    return SolverResult(assigned, idle, qalloc, rounds, stages,
+                        bid_dense=head)
 
 
 def _sparse_round(

@@ -67,8 +67,9 @@ CLUSTERS = {
 # and whether the bind queue drained inside the overlap window.
 VOLATILE = ("backend", "overlap_binds_drained")
 # last_stats keys the port keeps and the JAX package does not: each
-# placing cycle's per-job wait record (wall-clock waits).
-PORT_ONLY = ("job_waits",)
+# placing cycle's per-job wait record (wall-clock waits), the solver
+# that produced the result and the dense solve's bid passes.
+PORT_ONLY = ("job_waits", "solve_path", "bid_dense")
 
 
 @functools.cache
